@@ -9,7 +9,9 @@ setup(
     version="0.1.0",
     description="TPU-native distributed training framework with the "
                 "capabilities of Horovod",
-    packages=find_packages(include=["horovod_tpu", "horovod_tpu.*"]),
+    packages=find_packages(include=["horovod_tpu", "horovod_tpu.*",
+                                    "horovod_tpu_torch",
+                                    "horovod_tpu_torch.*"]),
     python_requires=">=3.10",
     install_requires=["jax", "numpy", "optax", "pyyaml"],
     extras_require={
@@ -25,5 +27,7 @@ setup(
             "horovodrun-tpu = horovod_tpu.runner.launch:main",
         ],
     },
-    package_data={"horovod_tpu.native": ["Makefile", "src/*.cc"]},
+    package_data={"horovod_tpu.native": ["Makefile", "src/*.cc"],
+                  # the port's CUDA kernels build from these at first use
+                  "horovod_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"]},
 )
