@@ -4,21 +4,33 @@
     python3 chip_smoke.py
 
 Phases, each fatal on failure:
-  1. build  — nvcc builds the three CUDA kernels from
+  1. build  — nvcc builds the six CUDA kernels from
      horovod_tpu_torch/csrc/, one process per source, in parallel;
-  2. kernel checks — each kernel against its plain PyTorch version on
-     the card, bf16, at ResNet-50 site shapes (batch 32) plus a ragged M
-     and a C that is no multiple of 16; kernel 2's ReLU mask against the
-     forward's z > 0 on an input built to sit on the boundary; then each
-     kernel, its plain version and a PyTorch yardstick timed at every
-     fused site shape of a ResNet-50 step, beside the card's bound;
-  3. main path — hvd.init(), ResNet-50 at full width (224², bf16,
+  2. conv kernel checks — kernels 1–3 against their plain PyTorch
+     versions on the card, in bf16 and in f32, at ResNet-50 site shapes
+     (batch 32) plus a ragged M and a C that is no multiple of 16;
+     kernel 2's ReLU mask against the forward's z > 0 on an input built
+     to sit on the boundary, with bf16 and with f32 y; then each kernel,
+     its plain version and a PyTorch yardstick timed at every fused site
+     shape of a ResNet-50 step, in both types, beside the card's bound;
+  3. flash kernel checks — kernels 4–6 against their plain versions at
+     the LM's shape (B·H 192, S 1024, dh 128, causal, bf16), non-causal,
+     a ragged S, dh 64, a non-causal chunk (Sq 512, Sk 1024) with an lse
+     cotangent, and f32; then each timed at the LM's shape beside its
+     bound, its plain version and scaled_dot_product_attention;
+  4. ResNet main path — hvd.init(), ResNet-50 at full width (224², bf16,
      batch 32) with HOROVOD_CONV_BLOCK=1, broadcast_parameters,
      DistributedOptimizer(SGD momentum 0.9) with the bucketed NCCL
      all-reduce: 2 warm-up and 5 timed steps, the launch counters read
      around them; then one step from the same weights on the unfused
-     route, whose loss must match;
-  4. kernel 3 on its path — 2 steps with HOROVOD_FUSE_CONV_BN=1.
+     route, whose loss must match; kernel 3 on its path, 7 steps with
+     HOROVOD_FUSE_CONV_BN=1; one f32 step on the block route against one
+     f32 unfused step from the same weights;
+  5. LM main path — the transformer LM at the bench's flagship width
+     (L12 D2048 F8192 H16 S1024 B12 V32768, bf16, Adam) through
+     horovod_tpu_torch.transformer_lm with attn="flash": 2 warm-up and
+     5 timed steps, 12 launches of each flash kernel per step; then one
+     step from the same weights with attn="local", whose loss must match.
 Then the `kernels` JSON line, the card's name and power limit, and last
 {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
 
@@ -37,6 +49,7 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM, NVIDIA data sheet
 BF16_FLOPS_PER_S = 989e12    # dense bf16 tensor cores, same source
+TF32_FLOPS_PER_S = 495e12    # dense tf32 tensor cores, same source
 
 CHECK_SHAPES = [(100352, 64, 256), (25088, 512, 128), (6272, 1024, 256),
                 (6272, 1024, 512), (6271, 64, 200), (1001, 24, 50)]
@@ -49,6 +62,32 @@ TOL_SUMS = 1e-3             # Σy: max|Δ| / Σ|y| per channel; Σy²: relative
 TOL_DW = 1e-3               # dW (f32): max|Δ| / max|ref|
 TOL_LOSS = 2e-2             # fused vs unfused step loss, relative (bf16
                             # activations through 50 layers)
+# f32 runs the conv kernels on tf32 (operands rounded to 11 significant
+# bits, products summed in f32), the plain versions in full f32: the
+# error of a K-term sum stays near 2^-11 of its typical term, well inside
+# 2^-9 of the largest output. The f32 ResNet step carries that rounding
+# through 50 layers of random weights.
+TOL_TF32 = 2.0 ** -9        # f32 y, dx, dW: max|Δ| / max|ref|
+TOL_LOSS_F32 = 1e-2         # f32 block vs unfused step loss, relative
+# Flash kernels against their plain versions (full f32 scores), o, dk,
+# dv and dq each held tile by tile: every 64-row tile (what one kernel
+# block writes) must satisfy ‖Δ_tile‖ ≤ tol·‖ref_tile‖, so an error in
+# any tile shows whatever the other tiles hold. In bf16 the kernels
+# round p and ds to bf16 (8 significant bits, rms error ~2^-9.3 of a
+# value) before the second product and the output to bf16 (the same
+# again): ~2^-8.6 of a tile's norm, under 2^-7. In f32 every operand is
+# rounded to tf32 (11 bits, rms ~2^-12.3), in the scores, p, dp and ds
+# in turn: ~2^-11 of a tile's norm, under 2^-9.
+TOL_FLASH = {"bfloat16": 2.0 ** -7, "float32": 2.0 ** -9}  # ‖Δ‖/‖ref‖ a tile
+TILE = 64
+TOL_LSE = 2e-3              # lse, absolute
+TOL_DELTA = 2e-5            # delta = rowsum(do·o) − dlse, each row against
+                            # Σ|do·o| + |dlse|: two f32 sums of ≤ 128 terms
+                            # in different orders differ by at most
+                            # 2·127·2^-24 ≈ 1.5e-5 of that
+TOL_LM_LOSS = 1e-4          # flash vs local attention LM step loss,
+                            # relative: ~9x the 1.1e-5 measured on an
+                            # H100 (bf16 softmax in "local")
 
 
 def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
@@ -67,18 +106,20 @@ def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(kind: str, m: int, cin: int, c: int):
-    """(bound ms, bytes ms, flops ms): each input read once, each output
-    written once, over HBM; the products' flops over bf16 peak."""
+def bound(kind: str, m: int, cin: int, c: int, e: int = 2):
+    """(bound ms, bytes ms, flops ms) for elements of e bytes (2: bf16,
+    4: f32 on tf32): each input read once, each output written once, over
+    HBM; the products' flops over the type's tensor-core peak."""
     if kind == "fwd":
-        nbytes = 2 * m * cin + 2 * cin * c + 2 * m * c + 2 * 4 * c
+        nbytes = e * m * cin + e * cin * c + e * m * c + 2 * 4 * c
         flops = 2 * m * cin * c
     else:
         rows = 7 if kind == "act_bwd" else 5
-        nbytes = (2 * 2 * m * c + 2 * m * cin + 2 * cin * c + 4 * rows * c
-                  + 2 * m * cin + 4 * cin * c)
+        nbytes = (e * 2 * m * c + e * m * cin + e * cin * c + 4 * rows * c
+                  + e * m * cin + 4 * cin * c)
         flops = 4 * m * cin * c
-    tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS_PER_S * 1e3
+    peak = BF16_FLOPS_PER_S if e == 2 else TF32_FLOPS_PER_S
+    tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
     return max(tb, tf), tb, tf
 
 
@@ -93,13 +134,14 @@ def need(cond: bool, what: str) -> None:
 
 # ---------------------------------------------------------------- inputs
 
-def site_inputs(m, cin, c, dev, seed):
-    """bf16 site inputs and the f32 rows both backward kernels take."""
+def site_inputs(m, cin, c, dev, seed, dtype=None):
+    """Site inputs in `dtype` (default bf16) and the f32 rows both
+    backward kernels take."""
     import torch
     from horovod_tpu_torch.ops import conv_block as cb
     from horovod_tpu_torch.ops import conv_bn_backward as cbb
     g = torch.Generator(device=dev).manual_seed(seed)
-    bf = torch.bfloat16
+    bf = dtype or torch.bfloat16
     x = torch.randn((m, cin), generator=g, device=dev).to(bf)
     w = (torch.randn((cin, c), generator=g, device=dev)
          * cin ** -0.5).to(bf)
@@ -172,10 +214,13 @@ def _err(a, b):
 def check_outputs(name, got, ref):
     """Hold one kernel's outputs against the plain version's; returns
     the max abs error over its outputs."""
+    import torch
+    f32 = ref[0].dtype == torch.float32
+    tol_out = TOL_TF32 if f32 else TOL_BF16
     if name == "fwd":
         (y, s1, s2), (yr, s1r, s2r) = got, ref
         e = _err(y, yr)
-        need(e <= TOL_BF16 * float(yr.float().abs().max()),
+        need(e <= tol_out * float(yr.float().abs().max()),
              f"kernel 1 y: max|Δ| {e}")
         scale = yr.float().abs().sum(0) + 1e-30
         rel = float(((s1 - s1r).abs() / scale).max())
@@ -185,20 +230,23 @@ def check_outputs(name, got, ref):
         return max(e, _err(s1, s1r), _err(s2, s2r)), f"y {e:.3g}, Σy rel {rel:.3g}, Σy² rel {rel2:.3g}"
     (dx, dw), (dxr, dwr) = got, ref
     e1, e2 = _err(dx, dxr), _err(dw, dwr)
-    need(e1 <= TOL_BF16 * float(dxr.float().abs().max()),
+    need(e1 <= tol_out * float(dxr.float().abs().max()),
          f"{name} dx: max|Δ| {e1}")
-    need(e2 <= TOL_DW * float(dwr.abs().max()), f"{name} dW: max|Δ| {e2}")
+    need(e2 <= (TOL_TF32 if f32 else TOL_DW) * float(dwr.abs().max()),
+         f"{name} dW: max|Δ| {e2}")
     return max(e1, e2), (f"dx {e1:.3g} (max {float(dxr.float().abs().max()):.3g}),"
                          f" dW {e2:.3g} (max {float(dwr.abs().max()):.3g})")
 
 
-def check_kernels(dev):
-    """Every kernel against its plain version at CHECK_SHAPES, then the
-    mask check; returns each kernel's largest max abs error."""
+def check_kernels(dev, dtype):
+    """Kernels 1–3 against their plain versions at CHECK_SHAPES in
+    `dtype`, then the mask check; returns each kernel's largest max abs
+    error."""
     import torch
     worst = {"fwd": 0.0, "act_bwd": 0.0, "bn_bwd": 0.0}
+    tag = str(dtype).replace("torch.", "")
     for i, (m, cin, c) in enumerate(CHECK_SHAPES):
-        s = site_inputs(m, cin, c, dev, seed=i)
+        s = site_inputs(m, cin, c, dev, seed=i, dtype=dtype)
         for name, run, plain in (("fwd", run_k1, plain_k1),
                                  ("act_bwd", run_k2, plain_k2),
                                  ("bn_bwd", run_k3, plain_k3)):
@@ -210,13 +258,14 @@ def check_kernels(dev):
                      f"{name} at {(m, cin, c)}: non-finite output")
             err, msg = check_outputs(name, got, ref)
             worst[name] = max(worst[name], err)
-            print(f"check {name:8s} M={m:6d} Cin={cin:4d} C={c:4d}: {msg}")
+            print(f"check {name:8s} {tag} M={m:6d} Cin={cin:4d} C={c:4d}: "
+                  f"{msg}")
         del s
-    mask_check(dev)
+    mask_check(dev, dtype)
     return worst
 
 
-def mask_check(dev, m=25088, c=256):
+def mask_check(dev, dtype, m=25088, c=256):
     """Kernel 2's ReLU mask equals the forward's z > 0, read out through
     the kernel itself: with w = I, dz = 1, g = 1 and a = b = 0 the
     kernel's dy is its mask and dx = dy @ wᵀ returns it. y takes few
@@ -226,7 +275,7 @@ def mask_check(dev, m=25088, c=256):
     from horovod_tpu_torch.ops import conv_bn_backward as cbb
     g = torch.Generator(device=dev).manual_seed(99)
     y = (torch.round(torch.randn((m, c), generator=g, device=dev) * 4) / 4
-         ).to(torch.bfloat16)
+         ).to(dtype)
     yf = y.float()
     mean = yf.mean(0)
     inv = torch.rsqrt(yf.square().mean(0) - mean.square() + 1e-5)
@@ -236,8 +285,8 @@ def mask_check(dev, m=25088, c=256):
     zf = ((yf - mean) * inv) * scale + bias     # the forward's f32 chain
     fwd_mask = zf > 0
     on_boundary = int((zf == 0).sum())
-    eye = torch.eye(c, device=dev, dtype=torch.bfloat16)
-    ones = torch.ones((m, c), device=dev, dtype=torch.bfloat16)
+    eye = torch.eye(c, device=dev, dtype=dtype)
+    ones = torch.ones((m, c), device=dev, dtype=dtype)
     one, zero = torch.ones(c, device=dev), torch.zeros(c, device=dev)
     dx, _ = cbb.launch_bwd("conv1x1_bn_act_bwd", "hvd_conv1x1_bn_act_bwd",
                            ones, y, ones, eye,
@@ -246,17 +295,18 @@ def mask_check(dev, m=25088, c=256):
     torch.cuda.synchronize()
     kmask = dx != 0
     equal = int((kmask == fwd_mask).sum())
-    print(f"check mask: {equal}/{m * c} equal to the forward's z > 0; "
+    print(f"check mask ({dtype}): {equal}/{m * c} equal to the forward's "
+          f"z > 0; "
           f"{on_boundary} pre-activations exactly on the boundary")
     need(on_boundary >= m, "mask check: too few boundary values")
     need(equal == m * c, f"kernel 2 mask differs at {m * c - equal} places")
     return equal, m * c, on_boundary
 
 
-def time_kernels(dev):
+def time_kernels(dev, dtype):
     """Per-step times over the 28 fused sites of a ResNet-50 step at batch
-    32: kernel, plain version, PyTorch yardstick and bound, each summed
-    over the sites (site shape × its count)."""
+    32 in `dtype`: kernel, plain version, PyTorch yardstick and bound,
+    each summed over the sites (site shape × its count)."""
     import torch
     from horovod_tpu_torch.models import resnet
     sites = resnet.fused_sites(50, 32, 224)
@@ -268,10 +318,10 @@ def time_kernels(dev):
            for k in ("fwd", "act_bwd", "bn_bwd")}
     detail = []
     for i, ((m, cin, c), count) in enumerate(sorted(shapes.items())):
-        s = site_inputs(m, cin, c, dev, seed=100 + i)
+        s = site_inputs(m, cin, c, dev, seed=100 + i, dtype=dtype)
         dy2 = (s["rows2"][0] * s["dz"].float() - s["rows2"][3]
                - s["rows2"][4] * (s["y"].float() - s["mean"]) * s["inv"]
-               ).to(torch.bfloat16)
+               ).to(dtype)
         for name, run, plain, lib in (
                 ("fwd", run_k1, plain_k1, library_fwd),
                 ("act_bwd", run_k2, plain_k2, lambda s: library_bwd(s, dy2)),
@@ -280,13 +330,13 @@ def time_kernels(dev):
             t = {"ms": time_ms(lambda: run(s)),
                  "plain_ms": time_ms(lambda: plain(s), iters=5),
                  "library_ms": time_ms(lambda: lib(s))}
-            b, tb, tf = bound(name, m, cin, c)
+            b, tb, tf = bound(name, m, cin, c, dtype.itemsize)
             t.update(bound_ms=b, bytes_ms=tb, flops_ms=tf)
             for key, v in t.items():
                 agg[name][key] += v * count
-            detail.append(dict(kernel=name, M=m, Cin=cin, C=c, count=count,
-                               **t))
-            print(f"time {name:8s} M={m:6d} Cin={cin:4d} C={c:4d} x{count}: "
+            detail.append(dict(kernel=name, dtype=str(dtype), M=m, Cin=cin,
+                               C=c, count=count, **t))
+            print(f"time {name:8s} {dtype.itemsize * 8}b M={m:6d} Cin={cin:4d} C={c:4d} x{count}: "
                   f"kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f}, "
                   f"library {t['library_ms']:.4f}, bound {b:.4f} "
                   f"({'bytes' if tb >= tf else 'operations'})")
@@ -294,22 +344,207 @@ def time_kernels(dev):
     return agg, detail
 
 
+# ---------------------------------------------------------------- flash
+
+# (label, B·H, Sq, Sk, dh, causal, dtype, with an lse cotangent)
+FLASH_CHECKS = [
+    ("LM shape", 192, 1024, 1024, 128, True, "bfloat16", False),
+    ("non-causal", 48, 1024, 1024, 128, False, "bfloat16", False),
+    ("ragged S", 48, 1000, 1000, 128, True, "bfloat16", False),
+    ("dh 64", 48, 1024, 1024, 64, True, "bfloat16", False),
+    ("chunk + dlse", 48, 512, 1024, 128, False, "bfloat16", True),
+    ("f32", 48, 1024, 1024, 128, True, "float32", False),
+    ("f32 chunk dh 32 + dlse", 48, 500, 1000, 32, False, "float32", True),
+]
+
+
+def flash_inputs(bh, sq, sk, dh, causal, dtype, with_dlse, dev, seed):
+    import torch
+    g = torch.Generator(device=dev).manual_seed(seed)
+    dt = getattr(torch, dtype)
+
+    def rnd(n):
+        return torch.randn((bh, n, dh), generator=g, device=dev).to(dt)
+
+    dlse = (0.1 * torch.randn((bh, sq), generator=g, device=dev)
+            if with_dlse else None)
+    return dict(q=rnd(sq), k=rnd(sk), v=rnd(sk), do=rnd(sq), dlse=dlse,
+                causal=causal, scale=dh ** -0.5)
+
+
+def run_flash(x):
+    """Kernels 4, 5, 6 in turn; returns (o, lse, dk, dv, delta, dq)."""
+    from horovod_tpu_torch.ops import flash_attention as fa
+    c, sc = x["causal"], x["scale"]
+    o, lse = fa.flash_fwd(x["q"], x["k"], x["v"], c, sc)
+    dk, dv, delta = fa.flash_bwd_dkdv(x["q"], x["k"], x["v"], o, x["do"],
+                                      lse, x["dlse"], c, sc)
+    dq = fa.flash_bwd_dq(x["q"], x["k"], x["v"], x["do"], lse, delta, c, sc)
+    return o, lse, dk, dv, delta, dq
+
+
+def tile_ratio(a, r, tile=TILE) -> float:
+    """max over 64-row tiles (along dim 1 of (BH, S, dh)) of
+    ‖a − r‖ / ‖r‖ in the tile."""
+    import torch.nn.functional as F
+    d2 = (a.float() - r.float()).square().sum(-1)
+    r2 = r.float().square().sum(-1)
+    pad = -d2.shape[1] % tile
+    d2, r2 = (F.pad(t, (0, pad)).reshape(t.shape[0], -1, tile).sum(-1)
+              for t in (d2, r2))
+    return float((d2 / r2.clamp_min(1e-30)).sqrt().max())
+
+
+def delta_ratio(delta, delta_r, o, do, dlse) -> float:
+    """max over rows of |Δdelta| / (Σ|do·o| + |dlse|)."""
+    size = (do.float() * o.float()).abs().sum(-1)
+    if dlse is not None:
+        size = size + dlse.abs()
+    return float(((delta - delta_r).abs() / size.clamp_min(1e-30)).max())
+
+
+def check_flash(dev):
+    """Kernels 4–6 against their plain versions at FLASH_CHECKS, each
+    plain version fed what its kernel was fed (the backward ones the
+    kernels' o, lse and delta). Returns each kernel's largest max abs
+    error and the per-check records (max abs error and worst tile ratio
+    of each output)."""
+    import torch
+    from horovod_tpu_torch.ops import flash_attention as fa
+    worst = {"attn_fwd": 0.0, "attn_dkdv": 0.0, "attn_dq": 0.0}
+    records = []
+    for i, (label, bh, sq, sk, dh, causal, dtype, wd) in enumerate(
+            FLASH_CHECKS):
+        x = flash_inputs(bh, sq, sk, dh, causal, dtype, wd, dev, 200 + i)
+        got = run_flash(x)
+        torch.cuda.synchronize()
+        for t in got:
+            need(bool(torch.isfinite(t.float()).all()),
+                 f"flash {label}: non-finite output")
+        o, lse, dk, dv, delta, dq = got
+        q, k, v, do, c, sc = (x[n] for n in ("q", "k", "v", "do", "causal",
+                                             "scale"))
+        o_r, lse_r = fa._fwd_plain(q, k, v, c, sc)
+        dk_r, dv_r, delta_r = fa._bwd_dkdv_plain(q, k, v, o, do, lse,
+                                                 x["dlse"], c, sc)
+        dq_r = fa._bwd_dq_plain(q, k, v, do, lse, delta, c, sc)
+        tol = TOL_FLASH[dtype]
+        rec = {"check": label, "BH": bh, "Sq": sq, "Sk": sk, "dh": dh,
+               "causal": causal, "dtype": dtype, "dlse": wd}
+        for name, a, r in (("o", o, o_r), ("dk", dk, dk_r), ("dv", dv, dv_r),
+                           ("dq", dq, dq_r)):
+            rec[name] = _err(a, r)
+            rec[name + "_tile"] = tile_ratio(a, r)
+            need(rec[name + "_tile"] <= tol,
+                 f"flash {label} {name}: a tile's ‖Δ‖/‖ref‖ is "
+                 f"{rec[name + '_tile']} (tolerance {tol})")
+        rec["delta"] = _err(delta, delta_r)
+        rec["delta_tile"] = delta_ratio(delta, delta_r, o, do, x["dlse"])
+        need(rec["delta_tile"] <= TOL_DELTA,
+             f"flash {label} delta: {rec['delta_tile']} of Σ|do·o| + |dlse|")
+        rec["lse"] = _err(lse, lse_r)
+        need(rec["lse"] <= TOL_LSE, f"flash {label} lse: {rec['lse']}")
+        worst["attn_fwd"] = max(worst["attn_fwd"], rec["o"], rec["lse"])
+        worst["attn_dkdv"] = max(worst["attn_dkdv"], rec["dk"], rec["dv"],
+                                 rec["delta"])
+        worst["attn_dq"] = max(worst["attn_dq"], rec["dq"])
+        records.append(rec)
+        print(f"check flash {label:22s} {dtype} BH={bh} Sq={sq} Sk={sk} "
+              f"dh={dh}: max|Δ| (worst tile ratio) " + ", ".join(
+                  f"{n} {rec[n]:.3g}" + (f" ({rec[n + '_tile']:.3g})"
+                                         if n != "lse" else "")
+                  for n in ("o", "lse", "dk", "dv", "dq", "delta")))
+        del x, got
+    return worst, records
+
+
+def flash_bound(kind, bh, sq, sk, dh, causal, e):
+    """(bound ms, bytes ms, flops ms) of one flash kernel launch: each
+    input read once and each output written once over HBM; the products
+    over the unmasked (query, key) pairs this causal flag leaves, over the
+    type's tensor-core peak (e bytes an element)."""
+    pairs = sq * (sq + 1) // 2 if causal else sq * sk
+    qs, ks, rows = bh * sq * dh, bh * sk * dh, bh * sq
+    if kind == "attn_fwd":      # q, k, v -> o, lse
+        nbytes, flops = e * (2 * qs + 2 * ks) + 4 * rows, 4 * pairs * dh
+    elif kind == "attn_dkdv":   # q, k, v, o, do, lse -> dk, dv, delta
+        nbytes = e * (3 * qs + 4 * ks) + 4 * 2 * rows
+        flops = 8 * pairs * dh + 2 * sq * dh
+    else:                       # q, k, v, do, lse, delta -> dq
+        nbytes, flops = e * (3 * qs + 2 * ks) + 4 * 2 * rows, 6 * pairs * dh
+    peak = BF16_FLOPS_PER_S if e == 2 else TF32_FLOPS_PER_S
+    tb = nbytes / HBM_BYTES_PER_S * 1e3
+    tf = flops * bh / peak * 1e3
+    return max(tb, tf), tb, tf
+
+
+def time_flash(dev, bh=192, s=1024, dh=128, heads=16):
+    """Kernels 4–6, their plain versions and
+    torch.nn.functional.scaled_dot_product_attention (forward for kernel
+    4; its autograd backward, which makes dq, dk and dv in one call, on
+    kernel 5's line) at the LM's per-layer shape, causal, bf16."""
+    import torch
+    import torch.nn.functional as F
+    from horovod_tpu_torch.ops import flash_attention as fa
+    x = flash_inputs(bh, s, s, dh, True, "bfloat16", False, dev, 300)
+    q, k, v, do, sc = x["q"], x["k"], x["v"], x["do"], x["scale"]
+    o, lse = fa.flash_fwd(q, k, v, True, sc)
+    _, _, delta = fa.flash_bwd_dkdv(q, k, v, o, do, lse, None, True, sc)
+    four = [t.reshape(bh // heads, heads, s, dh) for t in (q, k, v, do)]
+    leaves = [t.detach().requires_grad_(True) for t in four[:3]]
+    o_lib = F.scaled_dot_product_attention(*leaves, is_causal=True)
+    runs = {
+        "attn_fwd": (lambda: fa.flash_fwd(q, k, v, True, sc),
+                     lambda: fa._fwd_plain(q, k, v, True, sc),
+                     lambda: F.scaled_dot_product_attention(
+                         *four[:3], is_causal=True)),
+        "attn_dkdv": (lambda: fa.flash_bwd_dkdv(q, k, v, o, do, lse, None,
+                                                True, sc),
+                      lambda: fa._bwd_dkdv_plain(q, k, v, o, do, lse, None,
+                                                 True, sc),
+                      lambda: torch.autograd.grad(o_lib, leaves, four[3],
+                                                  retain_graph=True)),
+        "attn_dq": (lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta, True,
+                                            sc),
+                    lambda: fa._bwd_dq_plain(q, k, v, do, lse, delta, True,
+                                             sc),
+                    None)}
+    out = {}
+    for name, (run, plain, lib) in runs.items():
+        b, tb, tf = flash_bound(name, bh, s, s, dh, True, 2)
+        t = {"ms": time_ms(run), "plain_ms": time_ms(plain, iters=3),
+             "library_ms": time_ms(lib) if lib else None,
+             "bound_ms": b, "bytes_ms": tb, "flops_ms": tf}
+        out[name] = t
+        lib_s = ("n/a (in kernel 5's line)" if lib is None
+                 else f"{t['library_ms']:.4f}")
+        print(f"time {name:9s} BH={bh} S={s} dh={dh} causal bf16: kernel "
+              f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f}, library "
+              f"{lib_s}, bound {b:.4f} "
+              f"({'bytes' if tb >= tf else 'operations'})")
+    return out
+
+
 # ---------------------------------------------------------------- main path
 
-def reset_counters():
+def _wrappers():
     from horovod_tpu_torch.ops import conv_block as cb
     from horovod_tpu_torch.ops import conv_bn_backward as cbb
-    for f in (cb.conv1x1_fwd_fused, cb.conv1x1_bn_act_bwd_fused,
-              cbb.conv1x1_bn_bwd_fused):
+    from horovod_tpu_torch.ops import flash_attention as fa
+    return {"fwd": cb.conv1x1_fwd_fused,
+            "act_bwd": cb.conv1x1_bn_act_bwd_fused,
+            "bn_bwd": cbb.conv1x1_bn_bwd_fused,
+            "attn_fwd": fa.flash_fwd, "attn_dkdv": fa.flash_bwd_dkdv,
+            "attn_dq": fa.flash_bwd_dq}
+
+
+def reset_counters():
+    for f in _wrappers().values():
         f.launches = 0
 
 
 def read_counters():
-    from horovod_tpu_torch.ops import conv_block as cb
-    from horovod_tpu_torch.ops import conv_bn_backward as cbb
-    return {"fwd": cb.conv1x1_fwd_fused.launches,
-            "act_bwd": cb.conv1x1_bn_act_bwd_fused.launches,
-            "bn_bwd": cbb.conv1x1_bn_bwd_fused.launches}
+    return {k: f.launches for k, f in _wrappers().items()}
 
 
 def drive(sb, model, opt, data, group, warmup, timed):
@@ -332,8 +567,8 @@ def drive(sb, model, opt, data, group, warmup, timed):
 
 
 def main_path(batch=32, image=224, depth=50, warmup=2, timed=5):
-    """The port's training path at full width; each route driven with
-    the counters read around it."""
+    """The port's ResNet training path at full width; each route driven
+    with the counters read around it."""
     import torch
     import torch.distributed as dist
     import horovod_tpu_torch as hvd
@@ -341,7 +576,6 @@ def main_path(batch=32, image=224, depth=50, warmup=2, timed=5):
 
     os.environ["HOROVOD_CONV_BLOCK"] = "1"
     os.environ["HOROVOD_FUSE_CONV_BN"] = "0"
-    hvd.init()
     dev = hvd.device()
     model = sb.build(f"resnet{depth}", torch.bfloat16, dev)
     opt = sb.make_optimizer(model)
@@ -362,7 +596,8 @@ def main_path(batch=32, image=224, depth=50, warmup=2, timed=5):
           f"step {out['block']['per_step']}")
     need(counts["fwd"] == 28 * steps and counts["act_bwd"] == 28 * steps,
          f"expected 28 + 28 launches per step, got {counts}")
-    need(counts["bn_bwd"] == 0, "kernel 3 ran on the block route")
+    need(counts["bn_bwd"] == 0 and counts["attn_fwd"] == 0,
+         "kernel 3 or a flash kernel ran on the block route")
 
     # Same weights, fused and unfused route: the step losses must match.
     snap_m = copy.deepcopy(model.state_dict())
@@ -394,7 +629,114 @@ def main_path(batch=32, image=224, depth=50, warmup=2, timed=5):
     need(counts["bn_bwd"] == 28 * steps and counts["fwd"] == 0
          and counts["act_bwd"] == 0,
          f"expected 28 launches of kernel 3 per step, got {counts}")
-    hvd.shutdown()
+    return out
+
+
+def resnet_f32_check(batch=32, image=224, depth=50):
+    """One f32 ResNet step on the block route (kernels 1 and 2 on tf32)
+    and one on the unfused route, from the same weights: the losses must
+    agree within TOL_LOSS_F32."""
+    import torch
+    import torch.distributed as dist
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import synthetic_benchmark as sb
+
+    os.environ["HOROVOD_FUSE_CONV_BN"] = "0"
+    dev, group = hvd.device(), dist.group.WORLD
+    model = sb.build(f"resnet{depth}", torch.float32, dev)
+    opt = sb.make_optimizer(model)
+    data = sb.make_batch(batch, image, torch.float32, dev, seed=hvd.rank())
+    snap_m = copy.deepcopy(model.state_dict())
+    snap_o = copy.deepcopy(opt.state_dict())
+    out = {}
+    for route, flag in (("block", "1"), ("unfused", "0")):
+        os.environ["HOROVOD_CONV_BLOCK"] = flag
+        model.load_state_dict(snap_m)
+        opt.load_state_dict(snap_o)
+        reset_counters()
+        out[route] = sb.train_step(model, opt, data, group).item()
+        out[route + "_launches"] = read_counters()
+    rel = abs(out["block"] - out["unfused"]) / max(abs(out["unfused"]),
+                                                    1e-6)
+    out["loss_rel"] = rel
+    print(f"f32 route check: block loss {out['block']:.6f} (launches "
+          f"{out['block_launches']}), unfused {out['unfused']:.6f}, "
+          f"relative difference {rel:.3g} (tolerance {TOL_LOSS_F32})")
+    need(math.isfinite(out["block"]), "non-finite f32 loss")
+    need(out["block_launches"]["fwd"] == 28
+         and out["block_launches"]["act_bwd"] == 28,
+         "f32 block route: expected 28 + 28 launches")
+    need(sum(out["unfused_launches"].values()) == 0,
+         "the unfused route ran a kernel")
+    need(rel <= TOL_LOSS_F32, "f32 block and unfused losses disagree")
+    return out
+
+
+def lm_path(warmup=2, timed=5):
+    """The transformer LM at the bench's flagship width and batch
+    (transformer_lm.FLAGSHIP) through transformer_lm's build/train_step,
+    attn="flash", the counters read around 2 warm-up + 5 timed steps;
+    then one step from the same weights with attn="local"."""
+    import dataclasses
+    import torch
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import transformer_lm as lm
+    from horovod_tpu_torch.models import transformer as tfm
+
+    cfg = tfm.TransformerConfig(**lm.FLAGSHIP, attn="flash",
+                                dtype=torch.bfloat16)
+    batch, seq = lm.FLAGSHIP_BATCH, cfg.max_seq
+    dev = hvd.device()
+    model, opt = lm.build(cfg, dev)
+    data = lm.make_batch(batch, seq, cfg.vocab, dev, seed=hvd.rank())
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counters()
+    losses = [lm.train_step(model, opt, data) for _ in range(warmup)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses += [lm.train_step(model, opt, data) for _ in range(timed)]
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / timed
+    counts = read_counters()
+    losses = [float(v) for v in losses]
+    steps = warmup + timed
+    r = lm.report(cfg, batch, seq, dt, torch.cuda.get_device_name(dev))
+    out = dict(losses=losses, launches=counts, buckets=len(opt.plan),
+               per_step={k: v / steps for k, v in counts.items()},
+               peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9, **r)
+    print(f"LM path: L{cfg.n_layers} D{cfg.d_model} F{cfg.d_ff} "
+          f"H{cfg.n_heads} S{seq} B{batch} V{cfg.vocab} bf16, "
+          f"{hvd.size()} rank(s), {out['buckets']} buckets; losses "
+          f"{[round(v, 5) for v in losses]}")
+    print(f"LM path: {r['tokens_per_s']:.1f} tokens/s, {r['step_ms']:.2f} "
+          f"ms/step, model-FLOPs share of peak {r['mfu']:.4f}, peak memory "
+          f"{out['peak_mem_gb']:.1f} GB; launches per step "
+          f"{out['per_step']}")
+    need(all(math.isfinite(v) for v in losses), f"non-finite loss {losses}")
+    n = cfg.n_layers * steps
+    need(counts["attn_fwd"] == n and counts["attn_dkdv"] == n
+         and counts["attn_dq"] == n,
+         f"expected {cfg.n_layers} launches of kernels 4, 5, 6 per step, "
+         f"got {counts}")
+
+    snap_m = copy.deepcopy(model.state_dict())
+    snap_o = copy.deepcopy(opt.state_dict())
+    loss_f = lm.train_step(model, opt, data).item()
+    model.load_state_dict(snap_m)
+    opt.load_state_dict(snap_o)
+    del snap_m, snap_o
+    model.cfg = dataclasses.replace(cfg, attn="local")
+    reset_counters()
+    loss_l = lm.train_step(model, opt, data).item()
+    counts_l = read_counters()
+    rel = abs(loss_f - loss_l) / max(abs(loss_l), 1e-6)
+    out.update(loss_flash=loss_f, loss_local=loss_l, loss_rel=rel,
+               launches_local=counts_l)
+    print(f"LM attention check: flash loss {loss_f:.6f}, local "
+          f"{loss_l:.6f}, relative difference {rel:.3g} (tolerance "
+          f"{TOL_LM_LOSS})")
+    need(sum(counts_l.values()) == 0, "the local-attention step ran a kernel")
+    need(rel <= TOL_LM_LOSS, "flash and local LM losses disagree")
     return out
 
 
@@ -403,6 +745,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    import horovod_tpu_torch as hvd
     from horovod_tpu_torch import kernels
 
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 references in f32
@@ -417,21 +760,45 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"ptxas {name}: {line.strip()}")
 
-    errs = check_kernels(dev)
-    agg, detail = time_kernels(dev)
+    errs = check_kernels(dev, torch.bfloat16)  # the main path's type
+    errs32 = check_kernels(dev, torch.float32)
+    ferrs, flash_checks = check_flash(dev)
+    errs.update(ferrs)
+    agg, detail = time_kernels(dev, torch.bfloat16)
+    agg32, detail32 = time_kernels(dev, torch.float32)
+    for k, t in agg32.items():
+        print(f"time {k} f32 per ResNet-50 step: kernel {t['ms']:.4f} ms, "
+              f"plain {t['plain_ms']:.4f}, library {t['library_ms']:.4f}, "
+              f"bound {t['bound_ms']:.4f}")
+    agg.update(time_flash(dev))
     torch.cuda.empty_cache()
+
+    hvd.init()
     path = main_path()
+    torch.cuda.empty_cache()
+    path["f32"] = resnet_f32_check()
+    torch.cuda.empty_cache()
+    lm = lm_path()
+    hvd.shutdown()
 
     src = "horovod_tpu_torch/csrc/"
+    fa = "horovod_tpu/ops/flash_attention.py"
     meta = {"fwd": ("conv1x1_fwd_fused", src + "conv1x1_fwd.cu",
                     "horovod_tpu/ops/conv_block.py:192"),
             "act_bwd": ("conv1x1_bn_act_bwd_fused",
                         src + "conv1x1_bn_act_bwd.cu",
                         "horovod_tpu/ops/conv_block.py:323"),
             "bn_bwd": ("conv1x1_bn_bwd_fused", src + "conv1x1_bn_bwd.cu",
-                       "horovod_tpu/ops/conv_bn_backward.py:186")}
+                       "horovod_tpu/ops/conv_bn_backward.py:186"),
+            "attn_fwd": ("flash_fwd", src + "flash_fwd.cu", fa + ":105"),
+            "attn_dkdv": ("flash_bwd_dkdv", src + "flash_bwd_dkdv.cu",
+                          fa + ":274"),
+            "attn_dq": ("flash_bwd_dq", src + "flash_bwd_dq.cu",
+                        fa + ":303")}
     launches = dict(path["block"]["launches"])
     launches["bn_bwd"] = path["fuse_bn"]["launches"]["bn_bwd"]
+    for k in ("attn_fwd", "attn_dkdv", "attn_dq"):
+        launches[k] = lm["launches"][k]
     line = {"kernels": [
         {"name": meta[k][0], "route": "cuda", "source": meta[k][1],
          "replaces": meta[k][2], "launches": launches[k],
@@ -446,8 +813,10 @@ def main() -> int:
     os.makedirs("chiprun_out", exist_ok=True)
     with open("chiprun_out/chip_smoke.json", "w") as f:
         json.dump({"build_s": build_s, "kernels": line["kernels"],
-                   "sites": detail, "main_path": path, "nvidia_smi": smi},
-                  f, indent=1)
+                   "sites": detail + detail32, "conv_f32": agg32,
+                   "conv_f32_max_abs_err": errs32,
+                   "flash_checks": flash_checks, "main_path": path,
+                   "lm_path": lm, "nvidia_smi": smi}, f, indent=1)
     print(json.dumps(line))
     need(bool(smi), "nvidia-smi gave no card name and power limit")
     print(smi[0])  # as nvidia-smi gives them: "<name>, <power.limit>"

@@ -2,9 +2,9 @@
 //
 // Replaces the Pallas TPU kernel horovod_tpu/ops/conv_block.py
 // conv1x1_fwd_fused -> _fwd_kernel. Inputs x [M][Cin] and w^T [C][Cin]
-// (the wrapper passes w transposed so both operands load along K), bf16.
-// Outputs y [M][C] bf16 and the per-channel f32 sum and sum of squares of
-// the STORED (rounded) y.
+// (the wrapper passes w transposed so both operands load along K), both
+// bf16 or both f32 (tf32 products). Outputs y [M][C] in the input type
+// and the per-channel f32 sum and sum of squares of the STORED y.
 //
 // On the H100 the kernel is bound by bytes at most ResNet-50 sites: it
 // does Cin*C/(Cin+C) operations per byte moved (51 at Cin=64, C=256; 341
@@ -19,17 +19,18 @@
 
 namespace hvd {
 
+template <class T>
 __global__ void __launch_bounds__(THREADS, 2)
-    fwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wt,
-               bf16* __restrict__ y, float* __restrict__ ws_sum,
+    fwd_kernel(const T* __restrict__ x, const T* __restrict__ wt,
+               T* __restrict__ y, float* __restrict__ ws_sum,
                float* __restrict__ ws_sq, int M, int K, int C) {
-  __shared__ __align__(16) bf16 sa[TILE_ELEMS];
-  __shared__ __align__(16) bf16 sb[TILE_ELEMS];
+  __shared__ __align__(16) T sa[tile_elems<T>()];
+  __shared__ __align__(16) T sb[tile_elems<T>()];
   __shared__ float red[2][2][BN];  // [warp row][sum, sumsq][column]
   const int row0 = blockIdx.x * BM, col0 = blockIdx.y * BN;
   float acc[4][4][4];
-  gemm_tile<false, false>(Plain{x, M, K}, Plain{wt, C, K}, row0, col0, 0, K,
-                          acc, sa, sb);
+  gemm_tile<false, false>(Plain<T>{x, M, K}, Plain<T>{wt, C, K}, row0, col0, 0,
+                          K, acc, sa, sb);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int wm = warp / 4, wn = warp % 4, g = lane >> 2, t = lane & 3;
   float ps[4][2], pq[4][2];
@@ -46,9 +47,9 @@ __global__ void __launch_bounds__(THREADS, 2)
         int r = row0 + wm * 64 + mi * 16 + g + (e >= 2 ? 8 : 0);
         int c = col0 + wn * 32 + ni * 8 + 2 * t + (e & 1);
         if (r < M && c < C) {
-          bf16 v = __float2bfloat16_rn(acc[mi][ni][e]);
+          T v = Elt<T>::from_f32(acc[mi][ni][e]);
           y[(size_t)r * C + c] = v;
-          float f = __bfloat162float(v);  // sums of the rounded value
+          float f = Elt<T>::to_f32(v);  // sums of the stored value
           ps[ni][e & 1] = __fadd_rn(ps[ni][e & 1], f);
           pq[ni][e & 1] = __fadd_rn(pq[ni][e & 1], __fmul_rn(f, f));
         }
@@ -86,24 +87,32 @@ __global__ void __launch_bounds__(THREADS, 2)
   }
 }
 
-}  // namespace hvd
-
-// ws holds 2 * ceil(M / 128) * C floats. Returns cudaGetLastError().
-extern "C" int hvd_conv1x1_fwd(const void* x, const void* wt, void* y,
-                               void* ws, void* sum, void* sumsq, int M,
-                               int Cin, int C, void* stream) {
-  using namespace hvd;
+template <class T>
+int launch_fwd(const void* x, const void* wt, void* y, void* ws, void* sum,
+               void* sumsq, int M, int Cin, int C, void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   int nmb = (M + BM - 1) / BM;
   float* ws_sum = static_cast<float*>(ws);
   float* ws_sq = ws_sum + (size_t)nmb * C;
   dim3 grid(nmb, (C + BN - 1) / BN);
-  fwd_kernel<<<grid, THREADS, 0, st>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(wt),
-      static_cast<bf16*>(y), ws_sum, ws_sq, M, Cin, C);
+  fwd_kernel<T><<<grid, THREADS, 0, st>>>(
+      static_cast<const T*>(x), static_cast<const T*>(wt),
+      static_cast<T*>(y), ws_sum, ws_sq, M, Cin, C);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   colsum(ws_sum, static_cast<float*>(sum), nmb, C, st);
   colsum(ws_sq, static_cast<float*>(sumsq), nmb, C, st);
   return (int)cudaGetLastError();
 }
+
+}  // namespace hvd
+
+// ws holds 2 * ceil(M / 128) * C floats. Returns cudaGetLastError().
+#define HVD_FWD(SUFFIX, T)                                                  \
+  extern "C" int hvd_conv1x1_fwd_##SUFFIX(                                  \
+      const void* x, const void* wt, void* y, void* ws, void* sum,          \
+      void* sumsq, int M, int Cin, int C, void* stream) {                   \
+    return hvd::launch_fwd<T>(x, wt, y, ws, sum, sumsq, M, Cin, C, stream); \
+  }
+HVD_FWD(bf16, hvd::bf16)
+HVD_FWD(f32, float)

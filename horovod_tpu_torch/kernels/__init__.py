@@ -3,8 +3,9 @@
 Each source `horovod_tpu_torch/csrc/<name>.cu` is compiled by `nvcc` for
 `sm_90a` into a shared library with a plain C interface and loaded with
 ctypes. The build runs at first use, into `horovod_tpu_torch/_build/`
-(listed in .gitignore), named by a hash of the sources and flags, so a
-checkout builds what it holds and nothing stale is loaded. `build_all()`
+(listed in .gitignore), named by a hash of the source, the headers and
+that source's own flags, so a checkout builds what it holds and nothing
+stale is loaded. `build_all()`
 starts one `nvcc` per source, all at once.
 
 Every C entry point returns `cudaGetLastError()` after its launches;
@@ -26,14 +27,18 @@ from horovod_tpu_torch.common.exceptions import KernelError
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("conv1x1_fwd", "conv1x1_bn_act_bwd", "conv1x1_bn_bwd")
+CONV_SOURCES = ("conv1x1_fwd", "conv1x1_bn_act_bwd", "conv1x1_bn_bwd")
+FLASH_SOURCES = ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq")
+SOURCES = CONV_SOURCES + FLASH_SOURCES
 
-# -fmad=false: no a*b+c is contracted into an FMA, so every float chain
-# in the kernels rounds where torch's separate elementwise ops round
-# (the ReLU mask has to reproduce the forward's z > 0 exactly).
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+# The conv sources build with -fmad=false: no a*b+c is contracted into an
+# FMA, so their dy and mask chains round where torch's separate
+# elementwise ops round (the ReLU mask has to reproduce the forward's
+# z > 0 exactly). The flash sources need no such match and keep FMAs.
+FLAGS = {name: NVCC_FLAGS + (["-fmad=false"] if name in CONV_SOURCES
+                             else []) for name in SOURCES}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -50,7 +55,7 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(FLAGS[name]).encode())
     for fn in sorted(os.listdir(CSRC)):
         if fn == f"{name}.cu" or fn.endswith(".cuh"):
             with open(os.path.join(CSRC, fn), "rb") as f:
@@ -64,7 +69,8 @@ def _start(name: str):
         return None
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, f"{name}.cu")]
+    cmd = [_nvcc(), *FLAGS[name], "-o", tmp,
+           os.path.join(CSRC, f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return proc, tmp, out

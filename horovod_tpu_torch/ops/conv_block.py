@@ -84,7 +84,7 @@ def conv1x1_fwd_fused(x: torch.Tensor, w: torch.Tensor
     if x.device.type == "cpu":
         return _fwd_plain(x, w)
     wt = w.t().contiguous()  # (C, Cin): both operands load along Cin
-    check_cuda_args("conv1x1_fwd_fused", (x, wt), ())
+    suffix = check_cuda_args("conv1x1_fwd_fused", (x, wt), ())
     m, cin = x.shape
     c = w.shape[1]
     if w.shape[0] != cin:
@@ -95,7 +95,7 @@ def conv1x1_fwd_fused(x: torch.Tensor, w: torch.Tensor
     ws = torch.empty((2, nmb, c), dtype=torch.float32, device=x.device)
     ssum = torch.empty((c,), dtype=torch.float32, device=x.device)
     ssq = torch.empty((c,), dtype=torch.float32, device=x.device)
-    fn = kernels.lib("conv1x1_fwd").hvd_conv1x1_fwd
+    fn = getattr(kernels.lib("conv1x1_fwd"), f"hvd_conv1x1_fwd_{suffix}")
     fn.argtypes = [kernels.P] * 6 + [kernels.I] * 3 + [kernels.P]
     fn.restype = ctypes.c_int
     err = fn(*[_ptr(t) for t in (x, wt, y, ws, ssum, ssq)], m, cin, c,

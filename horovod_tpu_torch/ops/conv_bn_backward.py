@@ -13,7 +13,8 @@ what bounds it on the H100 and how its design answers that. Beside it
 here: `_bwd_plain`, the same function in plain PyTorch, which a CPU
 tensor takes and which the card checks compare against; and the launch
 counter `conv1x1_bn_bwd_fused.launches`. A CUDA tensor always launches
-the kernel, or raises.
+the kernel, or raises. bf16 and f32 are both kernel types: f32 runs the
+tf32 instance (mma.sync m16n8k8), never a cast down to bf16.
 
 This module also holds what ops/conv_block.py shares with it, as in the
 JAX package: the folding of the per-channel rows, the plain backward
@@ -90,23 +91,34 @@ def _stream(t: torch.Tensor):
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
 
 
+_SUFFIX = {torch.bfloat16: "bf16", torch.float32: "f32"}
+
+
 def check_cuda_args(what: str, mats: Sequence[torch.Tensor],
-                    rows: Sequence[torch.Tensor]) -> None:
-    """The kernels take contiguous bf16 matrices and contiguous f32 rows,
-    all on one CUDA device."""
-    dev = mats[0].device
+                    rows: Sequence[torch.Tensor]) -> str:
+    """The kernels take contiguous matrices of one dtype, bf16 or f32 (f32
+    runs the tf32 instance), and contiguous f32 rows, all on one CUDA
+    device. Returns the C entry point's dtype suffix."""
+    dev, dtype = mats[0].device, mats[0].dtype
+    for t in (*mats, *rows):
+        if t.device.type != "cuda":
+            raise KernelError(f"{what}: takes CUDA tensors, got a tensor on "
+                              f"{t.device}")
+    if dtype not in _SUFFIX:
+        raise KernelError(f"{what}: takes bfloat16 or float32 matrices, "
+                          f"got {dtype}")
     for t in mats:
-        if t.device != dev or t.dtype != torch.bfloat16 \
-                or not t.is_contiguous():
+        if t.device != dev or t.dtype != dtype or not t.is_contiguous():
             raise KernelError(
-                f"{what}: takes contiguous bfloat16 CUDA matrices on one "
-                f"device, got {t.dtype} on {t.device} "
+                f"{what}: takes contiguous {dtype} matrices on one device, "
+                f"got {t.dtype} on {t.device} "
                 f"(contiguous={t.is_contiguous()})")
     for r in rows:
         if r.device != dev or r.dtype != torch.float32 \
                 or not r.is_contiguous():
             raise KernelError(f"{what}: per-channel rows must be contiguous "
                               f"float32 on {dev}")
+    return _SUFFIX[dtype]
 
 
 def dw_splits(m: int, cin: int, c: int) -> Tuple[int, int]:
@@ -120,8 +132,9 @@ def dw_splits(m: int, cin: int, c: int) -> Tuple[int, int]:
 
 def launch_bwd(lib_name: str, fn_name: str, dz, y, x_in, w,
                rows: Sequence[torch.Tensor]):
-    """Run a backward kernel (2 or 3) on the card. Returns (dx, dW f32)."""
-    check_cuda_args(fn_name, (dz, y, x_in, w), rows)
+    """Run a backward kernel (2 or 3) on the card: the C entry point
+    `fn_name` plus the dtype suffix. Returns (dx, dW f32)."""
+    suffix = check_cuda_args(fn_name, (dz, y, x_in, w), rows)
     m, c = dz.shape
     cin = x_in.shape[1]
     if y.shape != (m, c) or x_in.shape[0] != m or w.shape != (cin, c):
@@ -132,7 +145,7 @@ def launch_bwd(lib_name: str, fn_name: str, dz, y, x_in, w,
     dx = torch.empty((m, cin), dtype=x_in.dtype, device=dz.device)
     ws = torch.empty((splits, cin, c), dtype=torch.float32, device=dz.device)
     dw = torch.empty((cin, c), dtype=torch.float32, device=dz.device)
-    fn = getattr(kernels.lib(lib_name), fn_name)
+    fn = getattr(kernels.lib(lib_name), f"{fn_name}_{suffix}")
     n_ptr = 4 + len(rows) + 3
     fn.argtypes = [kernels.P] * n_ptr + [kernels.I] * 5 + [kernels.P]
     fn.restype = ctypes.c_int
