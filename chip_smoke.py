@@ -5,7 +5,10 @@
 
 Phases, each fatal on failure:
   1. build  — nvcc builds the six CUDA kernels from
-     horovod_tpu_torch/csrc/, one process per source, in parallel;
+     horovod_tpu_torch/csrc/, one process per source, in parallel; what
+     ptxas says of registers and spills, and the HGMMA (wgmma) and
+     UTMALDG (TMA) instructions in each library's SASS, which kernels 4
+     and 5 must have;
   2. conv kernel checks — kernels 1–3 against their plain PyTorch
      versions on the card, in bf16 and in f32, at ResNet-50 site shapes
      (batch 32) plus a ragged M and a C that is no multiple of 16;
@@ -16,8 +19,10 @@ Phases, each fatal on failure:
   3. flash kernel checks — kernels 4–6 against their plain versions at
      the LM's shape (B·H 192, S 1024, dh 128, causal, bf16), non-causal,
      a ragged S, dh 64, a non-causal chunk (Sq 512, Sk 1024) with an lse
-     cotangent, and f32; then each timed at the LM's shape beside its
-     bound, its plain version and scaled_dot_product_attention;
+     cotangent, f32, dh 32 with a ragged S, dh 80 (zero-padded to the
+     128 instance) and dh 200 (the 256 instance) in bf16 and f32; then
+     each timed at the LM's shape beside its bound, its plain version
+     and scaled_dot_product_attention;
   4. ResNet main path — hvd.init(), ResNet-50 at full width (224², bf16,
      batch 32) with HOROVOD_CONV_BLOCK=1, broadcast_parameters,
      DistributedOptimizer(SGD momentum 0.9) with the bucketed NCCL
@@ -355,6 +360,10 @@ FLASH_CHECKS = [
     ("chunk + dlse", 48, 512, 1024, 128, False, "bfloat16", True),
     ("f32", 48, 1024, 1024, 128, True, "float32", False),
     ("f32 chunk dh 32 + dlse", 48, 500, 1000, 32, False, "float32", True),
+    ("bf16 dh 32 ragged", 48, 1000, 1000, 32, True, "bfloat16", False),
+    ("dh 80 padded", 48, 1024, 1024, 80, True, "bfloat16", False),
+    ("dh 200 (256 instance)", 48, 1024, 1024, 200, True, "bfloat16", False),
+    ("f32 dh 200 + dlse", 8, 512, 512, 200, True, "float32", True),
 ]
 
 
@@ -522,6 +531,32 @@ def time_flash(dev, bh=192, s=1024, dh=128, heads=16):
               f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f}, library "
               f"{lib_s}, bound {b:.4f} "
               f"({'bytes' if tb >= tf else 'operations'})")
+    return out
+
+
+def sass_counts():
+    """Per library, the HGMMA (wgmma) and UTMALDG (TMA load) instructions
+    in its SASS, read with the toolkit's cuobjdump: kernels 4 and 5 must
+    have both. None where the toolkit has no cuobjdump."""
+    from horovod_tpu_torch import kernels
+    tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                        "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        print("sass: the toolkit has no cuobjdump; HGMMA/UTMALDG not counted")
+        return None
+    out = {}
+    for name in kernels.SOURCES:
+        sass = subprocess.run([tool, "-sass", kernels._target(name)],
+                              capture_output=True, text=True,
+                              timeout=120).stdout
+        out[name] = {op: sum(f" {op}." in line or f" {op} " in line
+                             for line in sass.splitlines())
+                     for op in ("HGMMA", "UTMALDG")}
+        print(f"sass {name}: {out[name]['HGMMA']} HGMMA, "
+              f"{out[name]['UTMALDG']} UTMALDG")
+    for name in ("flash_fwd", "flash_bwd_dkdv"):
+        need(out[name]["HGMMA"] > 0 and out[name]["UTMALDG"] > 0,
+             f"{name}: no wgmma or TMA load in its SASS")
     return out
 
 
@@ -757,8 +792,11 @@ def main() -> int:
     print(f"build: {len(kernels.SOURCES)} kernels in {build_s:.1f} s")
     for name, log in kernels.ptxas_log.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if any(w in line for w in ("registers", "spill", "wgmma",
+                                       "setmaxnreg", "Performance",
+                                       "Compiling entry")):
                 print(f"ptxas {name}: {line.strip()}")
+    sass = sass_counts()
 
     errs = check_kernels(dev, torch.bfloat16)  # the main path's type
     errs32 = check_kernels(dev, torch.float32)
@@ -812,7 +850,8 @@ def main() -> int:
                          text=True, timeout=60).stdout.strip().splitlines()
     os.makedirs("chiprun_out", exist_ok=True)
     with open("chiprun_out/chip_smoke.json", "w") as f:
-        json.dump({"build_s": build_s, "kernels": line["kernels"],
+        json.dump({"build_s": build_s, "sass": sass,
+                   "kernels": line["kernels"],
                    "sites": detail + detail32, "conv_f32": agg32,
                    "conv_f32_max_abs_err": errs32,
                    "flash_checks": flash_checks, "main_path": path,

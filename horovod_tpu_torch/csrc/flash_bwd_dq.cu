@@ -1,13 +1,15 @@
 // Kernel 6: the flash-attention backward for dQ.
 //
-// Replaces the Pallas TPU kernel horovod_tpu/ops/flash_attention.py
-// _bwd -> _bwd_dq_kernel. Inputs q, do [BH][Sq][D], k, v [BH][Sk][D]
-// (bf16 or f32), lse [BH][Sq] f32 and delta [BH][Sq] f32, the row sums
-// that kernel 5's pre-pass wrote (with dlse already folded in, so this
-// kernel has one variant); output dq [BH][Sq][D] in the input type.
+// Replaces the Pallas TPU kernel horovod_tpu/ops/flash_attention.py _bwd
+// -> _bwd_dq_kernel. Inputs q, do [BH][Sq][D], k, v [BH][Sk][D] (bf16 or
+// f32; D 32, 64, 128 or 256), lse [BH][Sq] f32 and delta [BH][Sq] f32,
+// the row sums that kernel 5's pre-pass wrote (with dlse already folded
+// in, so this kernel has one variant); output dq [BH][Sq][D] in the
+// input type.
 //
-// One block per (bh, 64-query tile), looping over the key tiles up to
-// the diagonal (causal) or to Sk. Per key tile each warp recomputes, for
+// One block per (bh, 64-query tile), looping over the key tiles (64
+// rows; 32 for f32 at D 256, to stay inside shared memory) up to the
+// diagonal (causal) or to Sk. Per key tile each warp recomputes, for
 // its 16 queries, s = q.k^T, p = exp(s*scale - lse), dp = do.v^T and
 // ds = p * (dp - delta) * scale, and accumulates dq += ds.k in f32
 // registers. Each block owns its dq rows: no atomics.
@@ -29,14 +31,15 @@ __global__ void __launch_bounds__(NT)
               const T* __restrict__ v, const T* __restrict__ dout,
               const float* __restrict__ lse, const float* __restrict__ delta,
               T* __restrict__ dq, int Sq, int Sk, float scale, int causal) {
-  typedef Ld<T, D> L;
+  constexpr int KT = stream_rows<T, D>();  // rows of a k, v tile
+  typedef Ld<T, D, KT> L;
   extern __shared__ __align__(16) unsigned char smem[];
   T* sQ = reinterpret_cast<T*>(smem);
   T* sO = sQ + L::TILE_ELEMS;  // the do tile
   T* sK = sO + L::TILE_ELEMS;
-  T* sV = sK + L::TILE_ELEMS;
+  T* sV = sK + L::KT_ELEMS;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  T* sS = sV + L::TILE_ELEMS + warp * L::P_ELEMS;
+  T* sS = sV + L::KT_ELEMS + warp * L::P_ELEMS;
   const int bh = blockIdx.x;
   // Heaviest causal tiles (the last queries) are scheduled first.
   const int q0 = (gridDim.y - 1 - blockIdx.y) * TILE;
@@ -56,18 +59,18 @@ __global__ void __launch_bounds__(NT)
   float acc[D / 8][4];
   zero<D / 8>(acc);
   const int k_end = causal ? min(Sk, q0 + TILE) : Sk;
-  for (int k0 = 0; k0 < k_end; k0 += TILE) {
+  for (int k0 = 0; k0 < k_end; k0 += KT) {
     __syncthreads();
-    load_tile<T, D>(sK, kb, k0, Sk);
-    load_tile<T, D>(sV, vb, k0, Sk);
+    load_tile<T, D, KT>(sK, kb, k0, Sk);
+    load_tile<T, D, KT>(sV, vb, k0, Sk);
     __syncthreads();
-    float s[TILE / 8][4], dp[TILE / 8][4];
-    zero<TILE / 8>(s);
-    zero<TILE / 8>(dp);
-    mma_nt<T, TILE / 8, D>(s, sQ, L::TILE_LD, warp * 16, sK, L::TILE_LD);
-    mma_nt<T, TILE / 8, D>(dp, sO, L::TILE_LD, warp * 16, sV, L::TILE_LD);
+    float s[KT / 8][4], dp[KT / 8][4];
+    zero<KT / 8>(s);
+    zero<KT / 8>(dp);
+    mma_nt<T, KT / 8, D>(s, sQ, L::TILE_LD, warp * 16, sK, L::TILE_LD);
+    mma_nt<T, KT / 8, D>(dp, sO, L::TILE_LD, warp * 16, sV, L::TILE_LD);
 #pragma unroll
-    for (int j = 0; j < TILE / 8; ++j)
+    for (int j = 0; j < KT / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         int h = e >> 1, r = r_lo + h * 8, c = k0 + acc_col(j, e);
@@ -78,7 +81,7 @@ __global__ void __launch_bounds__(NT)
         sS[acc_row(e) * L::P_LD + acc_col(j, e)] = Ty<T>::from_f32(ds);
       }
     __syncwarp();
-    mma_nn<T, D / 8, TILE>(acc, sS, L::P_LD, sK, L::TILE_LD);
+    mma_nn<T, D / 8, KT>(acc, sS, L::P_LD, sK, L::TILE_LD);
   }
   store_rows<T, D>(dq + (size_t)bh * Sq * D, acc, q0 + warp * 16, Sq, 1.f,
                    1.f);
@@ -88,9 +91,10 @@ template <class T, int D>
 int launch(const void* q, const void* k, const void* v, const void* dout,
            const void* lse, const void* delta, void* dq, int BH, int Sq,
            int Sk, float scale, int causal, void* stream) {
-  typedef Ld<T, D> L;
+  typedef Ld<T, D, stream_rows<T, D>()> L;
   const int smem =
-      (4 * L::TILE_ELEMS + WARPS * L::P_ELEMS) * (int)sizeof(T);
+      (2 * L::TILE_ELEMS + 2 * L::KT_ELEMS + WARPS * L::P_ELEMS) *
+      (int)sizeof(T);
   cudaError_t e = allow_smem(dq_kernel<T, D>, smem);
   if (e != cudaSuccess) return (int)e;
   dim3 grid(BH, (Sq + TILE - 1) / TILE);

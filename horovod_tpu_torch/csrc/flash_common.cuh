@@ -5,7 +5,7 @@
 // Layout: q, o, do, dq [BH][Sq][D] and k, v, dk, dv [BH][Sk][D],
 // row-major and 16-byte aligned; lse, delta, dlse [BH][Sq] f32. Element
 // types: bf16 (mma m16n8k16) or f32 (mma m16n8k8 on tf32; every operand
-// is rounded to tf32 as its fragment is loaded). D in {32, 64, 128}.
+// is rounded to tf32 as its fragment is loaded). D in {32, 64, 128, 256}.
 //
 // A block has 4 warps and works on one 64-row tile of its own (queries
 // for the forward and dQ, keys for dK/dV); each warp owns 16 of those
@@ -25,6 +25,15 @@ namespace flash {
 constexpr int TILE = 64;          // rows of a q or kv tile
 constexpr int WARPS = 4, NT = 128;
 constexpr float NEG_INF = -1e30f;  // the JAX kernel's mask value
+constexpr float LOG2E = 1.4426950408889634f, LN2 = 0.6931471805599453f;
+// The Hopper kernels (bf16, D <= 128) have two consumer warpgroups. The
+// forward adds a producer warpgroup: it launches at 168 registers a
+// thread (384 x 168 fit the SM's 65,536), the producer drops to 24 and
+// the consumers rise to 240 (setmaxnreg). The dK/dV kernel has no
+// producer warpgroup: under setmaxnreg ptxas held its consumers near 190
+// registers and spilled the accumulators, while 256 threads may use 255.
+constexpr int CONSUMER_WARPS = 8, HOP_NT = CONSUMER_WARPS * 32 + 128;
+constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;
 
 template <class T>
 struct Ty;
@@ -69,24 +78,34 @@ struct Ty<float> {
   }
 };
 
-// Row strides in shared memory: a D-wide tile and a 64-wide score tile.
-// The pads put the 8 rows a fragment load touches in distinct banks.
-template <class T, int D>
+// Row strides in shared memory: a D-wide tile and a KT-wide score tile,
+// where KT is the row count of the tile streamed through the loop. The
+// pads put the 8 rows a fragment load touches in distinct banks.
+template <class T, int D, int KT = TILE>
 struct Ld {
   static constexpr int TILE_LD = D + Ty<T>::PAD;
-  static constexpr int P_LD = TILE + Ty<T>::PAD;
+  static constexpr int P_LD = KT + Ty<T>::PAD;
   static constexpr int TILE_ELEMS = TILE * TILE_LD;
+  static constexpr int KT_ELEMS = KT * TILE_LD;  // one streamed tile
   static constexpr int P_ELEMS = 16 * P_LD;  // one warp's score slice
 };
 
-// sm[0 .. 64) rows <- g rows [r0, r0 + 64) of a [rows][D] matrix; rows at
-// or past `rows` are zero. 16-byte loads and stores.
+// Rows of the streamed tile in the backward kernels: 32 for f32 at D
+// 256, where four 64-row tiles would pass the 227 KB of shared memory a
+// block may use; else 64.
 template <class T, int D>
+__host__ __device__ constexpr int stream_rows() {
+  return sizeof(T) == 4 && D == 256 ? 32 : TILE;
+}
+
+// sm[0 .. ROWS) rows <- g rows [r0, r0 + ROWS) of a [rows][D] matrix;
+// rows at or past `rows` are zero. 16-byte loads and stores.
+template <class T, int D, int ROWS = TILE>
 __device__ __forceinline__ void load_tile(T* sm, const T* g, int r0,
                                           int rows) {
   constexpr int VEC = 16 / sizeof(T);
   constexpr int PER_ROW = D / VEC;
-  for (int i = threadIdx.x; i < TILE * PER_ROW; i += NT) {
+  for (int i = threadIdx.x; i < ROWS * PER_ROW; i += NT) {
     int r = i / PER_ROW, c = (i % PER_ROW) * VEC;
     uint4 v = make_uint4(0u, 0u, 0u, 0u);
     if (r0 + r < rows)
@@ -175,6 +194,22 @@ __device__ __forceinline__ void store_rows(T* out, const float (*acc)[4],
     }
 }
 
+// The Hopper kernels' block order over a 1-d grid of n_tiles * BH
+// blocks: heads in groups of GROUP_HEADS, and inside a group tile 0 (the
+// heaviest under causal masking) of every head, then tile 1, and so on.
+// The blocks in flight then share a few heads, whose k, v (or q, do)
+// stay in the 50 MB L2 instead of 132 heads' worth streaming from HBM.
+constexpr int GROUP_HEADS = 16;
+__device__ __forceinline__ void group_order(int n_tiles, int BH, int& bh,
+                                            int& tile) {
+  const int L = blockIdx.x;
+  const int g0 = L / (n_tiles * GROUP_HEADS) * GROUP_HEADS;
+  const int heads = min(GROUP_HEADS, BH - g0);
+  const int r = L - g0 * n_tiles;
+  tile = r / heads;
+  bh = g0 + r % heads;
+}
+
 // Dynamic shared memory above 48 KB must be allowed per kernel.
 template <class K>
 inline cudaError_t allow_smem(K kernel, int bytes) {
@@ -189,17 +224,20 @@ inline cudaError_t allow_smem(K kernel, int bytes) {
 
 // One extern "C" entry point per source dispatches on (is_f32, D) to the
 // instance LAUNCH<T, D>(args...); any other D returns
-// cudaErrorInvalidValue (the Python wrapper refuses it first).
+// cudaErrorInvalidValue (the Python wrapper pads dh up to an instance
+// and refuses dh > 256 first).
 #define HVD_FLASH_DISPATCH(LAUNCH, is_f32, D, ...)            \
   do {                                                        \
     if (is_f32) {                                             \
       if (D == 32) return LAUNCH<float, 32>(__VA_ARGS__);     \
       if (D == 64) return LAUNCH<float, 64>(__VA_ARGS__);     \
       if (D == 128) return LAUNCH<float, 128>(__VA_ARGS__);   \
+      if (D == 256) return LAUNCH<float, 256>(__VA_ARGS__);   \
     } else {                                                  \
       if (D == 32) return LAUNCH<hvd::bf16, 32>(__VA_ARGS__); \
       if (D == 64) return LAUNCH<hvd::bf16, 64>(__VA_ARGS__); \
       if (D == 128) return LAUNCH<hvd::bf16, 128>(__VA_ARGS__); \
+      if (D == 256) return LAUNCH<hvd::bf16, 256>(__VA_ARGS__); \
     }                                                         \
     return (int)cudaErrorInvalidValue;                        \
   } while (0)

@@ -10,14 +10,19 @@ scores, through three hand-written CUDA kernels (csrc/, sm_90a):
     delta = rowsum(do * o) - dlse from a pre-pass of the same launch;
   * kernel 6, `flash_bwd_dq` (csrc/flash_bwd_dq.cu; replaces
     `_bwd_dq_kernel`): dq.
-Each takes bf16 or f32 (tf32 products) at head dims 32, 64 and 128.
+Each takes bf16 or f32 (tf32 products) at any head dim up to 256: the
+wrappers zero-pad dh to the next compile-time instance (32, 64, 128,
+256) and slice the results back, which is exact (`_pad_head`). In bf16
+at D 32–128, kernels 4 and 5 run on Hopper's wgmma with TMA-fed rings
+and P kept in registers; kernel 6, f32 and D 256 run the simple
+mma.sync versions.
 
 Beside each kernel: its plain PyTorch version (`_fwd_plain`,
 `_bwd_dkdv_plain`, `_bwd_dq_plain`: full f32 scores, the softmax, and the
 backward written out with the kernels' formulas), which a CPU tensor
 takes and the card checks compare against, and its launch counter
 (`.launches` on the wrapper). A CUDA tensor always launches the kernel,
-or raises KernelError, for instance for another head dim.
+or raises KernelError, for instance for a head dim above 256.
 
 The route is chosen by shape, as in the JAX package: `flash_attention`
 sends a shape that `_auto_block` cannot tile to
@@ -38,7 +43,7 @@ from horovod_tpu_torch.parallel.ring_attention import (
     blockwise_attention_reference)
 
 _NEG_INF = -1e30
-HEAD_DIMS = (32, 64, 128)  # the kernels' compile-time instances
+HEAD_DIMS = (32, 64, 128, 256)  # the kernels' compile-time instances
 _IS_F32 = {torch.bfloat16: 0, torch.float32: 1}
 
 
@@ -96,15 +101,37 @@ def _bwd_dq_plain(q, k, v, do, lse, delta, causal, scale):
 # the kernels
 # --------------------------------------------------------------------------
 
+def _instance(dh: int) -> int:
+    """The smallest compile-time head dim that holds dh."""
+    for d in HEAD_DIMS:
+        if dh <= d:
+            return d
+    raise KernelError(f"head dim {dh} is above {HEAD_DIMS[-1]}, the "
+                      f"largest the kernels take")
+
+
+def _pad_head(t: torch.Tensor, D: int) -> torch.Tensor:
+    """t with its last dim zero-padded to D. Zero columns add nothing to
+    q·kᵀ, so scores, lse and delta are unchanged, and they give zero
+    columns of o, dq, dk and dv, which the wrappers slice away."""
+    dh = t.shape[-1]
+    return t if dh == D else torch.nn.functional.pad(t, (0, D - dh))
+
+
+def _unpad(t: torch.Tensor, dh: int) -> torch.Tensor:
+    return t if t.shape[-1] == dh else t[..., :dh].contiguous()
+
+
 def _ptr(t: Optional[torch.Tensor]):
     return ctypes.c_void_p(None if t is None else t.data_ptr())
 
 
 def _cuda_args(what: str, mats, rows):
-    """Contiguous versions of what the kernels read, after the checks:
-    one CUDA device, bf16 or f32 matrices of one dtype with a head dim
-    that has an instance, 16-byte aligned (the kernels load rows 16 bytes
-    at a time), f32 rows. Returns (mats, rows)."""
+    """What the kernels read, after the checks: one CUDA device, bf16 or
+    f32 matrices of one dtype with a head dim of at most 256, contiguous
+    and zero-padded to their instance's head dim, 16-byte aligned (the
+    kernels load rows 16 bytes at a time), f32 contiguous rows. Returns
+    (mats, rows, D)."""
     mats = list(mats)
     rows = [r for r in rows if r is not None]
     dev, dtype, dh = mats[0].device, mats[0].dtype, mats[0].shape[-1]
@@ -117,17 +144,18 @@ def _cuda_args(what: str, mats, rows):
     if dtype not in _IS_F32 or any(t.dtype != dtype for t in mats):
         raise KernelError(f"{what}: takes bfloat16 or float32 q, k, v of "
                           f"one dtype, got {[t.dtype for t in mats]}")
-    if dh not in HEAD_DIMS:
-        raise KernelError(f"{what}: head dim {dh} has no kernel instance "
-                          f"(instances: {HEAD_DIMS})")
+    try:
+        D = _instance(dh)
+    except KernelError as e:
+        raise KernelError(f"{what}: {e}") from None
     if any(r.dtype != torch.float32 for r in rows):
         raise KernelError(f"{what}: lse, delta and dlse must be float32")
 
-    mats = [t.contiguous() for t in mats]
+    mats = [_pad_head(t, D).contiguous() for t in mats]
     if any(t.data_ptr() % 16 for t in mats):
         raise KernelError(f"{what}: q, k, v, o and do must start on a "
                           f"16-byte boundary")
-    return mats, [r.contiguous() for r in rows]
+    return mats, [r.contiguous() for r in rows], D
 
 
 def _call(name: str, fn_name: str, args, ints, scale, causal, is_f32,
@@ -151,15 +179,16 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dh) in q.dtype, lse (BH, Sq) f32)."""
     if q.device.type == "cpu":
         return _fwd_plain(q, k, v, causal, scale)
-    (q, k, v), _ = _cuda_args("flash_fwd", (q, k, v), ())
-    bh, sq, dh = q.shape
+    dh = q.shape[-1]
+    (q, k, v), _, D = _cuda_args("flash_fwd", (q, k, v), ())
+    bh, sq, _ = q.shape
     o = torch.empty_like(q)
     lse = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
     _call("flash_fwd", "hvd_flash_fwd", (q, k, v, o, lse),
-          (bh, sq, k.shape[1], dh), scale, causal, _IS_F32[q.dtype],
+          (bh, sq, k.shape[1], D), scale, causal, _IS_F32[q.dtype],
           _stream(q))
     flash_fwd.launches += 1
-    return o, lse
+    return _unpad(o, dh), lse
 
 
 flash_fwd.launches = 0
@@ -170,18 +199,19 @@ def flash_bwd_dkdv(q, k, v, o, do, lse, dlse, causal: bool, scale: float):
     without an lse cotangent. Returns (dk, dv, delta (BH, Sq) f32)."""
     if q.device.type == "cpu":
         return _bwd_dkdv_plain(q, k, v, o, do, lse, dlse, causal, scale)
-    (q, k, v, o, do), rows = _cuda_args("flash_bwd_dkdv", (q, k, v, o, do),
-                                        (lse, dlse))
+    dh = q.shape[-1]
+    (q, k, v, o, do), rows, D = _cuda_args(
+        "flash_bwd_dkdv", (q, k, v, o, do), (lse, dlse))
     lse, dlse = rows[0], (rows[1] if dlse is not None else None)
-    bh, sq, dh = q.shape
+    bh, sq, _ = q.shape
     delta = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _call("flash_bwd_dkdv", "hvd_flash_bwd_dkdv",
           (q, k, v, o, do, lse, dlse, delta, dk, dv),
-          (bh, sq, k.shape[1], dh), scale, causal, _IS_F32[q.dtype],
+          (bh, sq, k.shape[1], D), scale, causal, _IS_F32[q.dtype],
           _stream(q))
     flash_bwd_dkdv.launches += 1
-    return dk, dv, delta
+    return _unpad(dk, dh), _unpad(dv, dh), delta
 
 
 flash_bwd_dkdv.launches = 0
@@ -191,15 +221,16 @@ def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool, scale: float):
     """Kernel 6: dq (BH, Sq, dh) from the delta of kernel 5."""
     if q.device.type == "cpu":
         return _bwd_dq_plain(q, k, v, do, lse, delta, causal, scale)
-    (q, k, v, do), (lse, delta) = _cuda_args(
+    dh = q.shape[-1]
+    (q, k, v, do), (lse, delta), D = _cuda_args(
         "flash_bwd_dq", (q, k, v, do), (lse, delta))
-    bh, sq, dh = q.shape
+    bh, sq, _ = q.shape
     dq = torch.empty_like(q)
     _call("flash_bwd_dq", "hvd_flash_bwd_dq", (q, k, v, do, lse, delta, dq),
-          (bh, sq, k.shape[1], dh), scale, causal, _IS_F32[q.dtype],
+          (bh, sq, k.shape[1], D), scale, causal, _IS_F32[q.dtype],
           _stream(q))
     flash_bwd_dq.launches += 1
-    return dq
+    return _unpad(dq, dh)
 
 
 flash_bwd_dq.launches = 0

@@ -163,14 +163,25 @@ def _close_tiles(got, ref, tol, tile=64):
     assert ratio <= tol, ratio
 
 
-FLASH = [  # (BH, Sq, Sk, dh, causal, with dlse)
+FLASH = [  # (BH, Sq, Sk, dh, causal, with dlse), in bf16 and f32
     (4, 256, 256, 128, True, False), (4, 200, 200, 64, True, False),
     (4, 256, 256, 32, False, False), (4, 128, 320, 64, False, True),
 ]
+# bf16 only: D 32 with a ragged S (64-byte swizzle, TMA zero fill), dh 80
+# (zero-padded to the 128 instance), dh 200 (the 256 instance); and f32
+# at dh 200 (the 256 instance with 32-row streamed tiles).
+FLASH_MORE = [
+    (torch.bfloat16, 4, 1000, 1000, 32, True, False),
+    (torch.bfloat16, 4, 256, 256, 80, True, False),
+    (torch.bfloat16, 4, 256, 256, 200, True, False),
+    (torch.float32, 2, 200, 200, 200, True, True),
+]
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("bh,sq,sk,dh,causal,with_dlse", FLASH)
+@pytest.mark.parametrize(
+    "dtype,bh,sq,sk,dh,causal,with_dlse",
+    [(dt, *row) for row in FLASH for dt in (torch.bfloat16, torch.float32)]
+    + FLASH_MORE)
 def test_flash_kernels_match_plain(dev, dtype, bh, sq, sk, dh, causal,
                                    with_dlse):
     g = torch.Generator(device=dev).manual_seed(sq + dh)
@@ -224,6 +235,6 @@ def test_flash_attention_grads_on_the_card(dev):
 
 
 def test_flash_refuses_a_head_dim_without_instance(dev):
-    q = torch.zeros((2, 64, 48), device=dev, dtype=torch.bfloat16)
-    with pytest.raises(KernelError, match="48"):
+    q = torch.zeros((2, 64, 300), device=dev, dtype=torch.bfloat16)
+    with pytest.raises(KernelError, match="256"):
         fa.flash_fwd(q, q, q, True, 0.1)

@@ -204,3 +204,79 @@ def test_non_cpu_tensor_never_falls_back():
         tfa.flash_bwd_dkdv(q, q, q, q, q, lse, None, True, 0.1)
     with pytest.raises(KernelError):
         tfa.flash_bwd_dq(q, q, q, q, lse, lse, True, 0.1)
+
+
+# ---------------------------------------------------------------- head dims
+
+@pytest.mark.parametrize("dh,D", [(16, 32), (32, 32), (48, 64), (80, 128),
+                                  (129, 256), (256, 256)])
+def test_instance_is_the_next_head_dim_with_a_kernel(dh, D):
+    assert tfa._instance(dh) == D
+
+
+def test_head_dim_above_256_is_refused():
+    with pytest.raises(KernelError, match="256"):
+        tfa._instance(257)
+
+
+def _padded_route(q, k, v, causal):
+    """What a CUDA tensor takes for a head dim without an instance: q, k,
+    v zero-padded to `_instance(dh)`, the kernels (here their plain
+    versions) at the true dh's scale, the outputs sliced back. Returns
+    (o, (dq, dk, dv)) for the loss sum(sin(o)), at (BH, S, dh)."""
+    dh = q.shape[-1]
+    D, scale = tfa._instance(dh), dh ** -0.5
+    qp, kp, vp = (tfa._pad_head(t, D) for t in (q, k, v))
+    o_p, lse = tfa._fwd_plain(qp, kp, vp, causal, scale)
+    o = o_p[..., :dh]
+    do_p = tfa._pad_head(torch.cos(o), D)
+    dk, dv, delta = tfa._bwd_dkdv_plain(qp, kp, vp, o_p, do_p, lse, None,
+                                        causal, scale)
+    dq = tfa._bwd_dq_plain(qp, kp, vp, do_p, lse, delta, causal, scale)
+    return o, tuple(g[..., :dh] for g in (dq, dk, dv))
+
+
+@pytest.mark.parametrize("dh", [16, 48, 80, 96, 200])
+def test_padded_head_dim_matches_jax(dh):
+    """Zero-padding dh to the next instance is exact: the padded route
+    equals the JAX kernel (interpret mode) at the true dh, forward and
+    q, k, v gradients, causal."""
+    S = 64 if dh > 128 else 128
+    q, k, v = _mk(*[(1, 2, S, dh)] * 3, seed=dh)
+
+    def jloss(q, k, v):
+        return jnp.sum(jnp.sin(jfa.flash_attention(
+            q, k, v, causal=True, block_q=64, block_k=64)))
+
+    want_o = jfa.flash_attention(*_j(q, k, v), causal=True, block_q=64,
+                                 block_k=64)
+    want = jax.grad(jloss, argnums=(0, 1, 2))(*_j(q, k, v))
+    flat = [torch.tensor(a.reshape(2, S, dh)) for a in (q, k, v)]
+    o, grads = _padded_route(*flat, causal=True)
+    _close(np.asarray(want_o).reshape(2, S, dh), o, TOL_OUT)
+    for a, b in zip(want, grads):
+        _close(np.asarray(a).reshape(2, S, dh), b, TOL_GRAD)
+
+
+@pytest.mark.parametrize("dh", [16, 48, 80, 200])
+@pytest.mark.parametrize("causal", [True, False])
+def test_padding_leaves_lse_and_delta_unchanged(dh, causal):
+    """The padded plain kernels give the unpadded ones' o, lse, delta and
+    gradients: zero columns add nothing to any sum."""
+    q, k, v, do = (torch.tensor(a) for a in _mk(*[(2, 64, dh)] * 4,
+                                                seed=10 + dh))
+    D, scale = tfa._instance(dh), dh ** -0.5
+    o, lse = tfa._fwd_plain(q, k, v, causal, scale)
+    dk, dv, delta = tfa._bwd_dkdv_plain(q, k, v, o, do, lse, None, causal,
+                                        scale)
+    p = [tfa._pad_head(t, D) for t in (q, k, v, do)]
+    o_p, lse_p = tfa._fwd_plain(p[0], p[1], p[2], causal, scale)
+    dk_p, dv_p, delta_p = tfa._bwd_dkdv_plain(
+        p[0], p[1], p[2], tfa._pad_head(o, D), p[3], lse, None, causal,
+        scale)
+    _close(o, o_p[..., :dh], 1e-6)
+    assert not bool(o_p[..., dh:].any())
+    _close(lse, lse_p, 1e-6)
+    _close(delta, delta_p, 1e-6)
+    _close(dk, dk_p[..., :dh], 1e-6)
+    _close(dv, dv_p[..., :dh], 1e-6)
