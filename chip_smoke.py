@@ -7,22 +7,30 @@ Phases, each fatal on failure:
   1. build  — nvcc builds the six CUDA kernels from
      horovod_tpu_torch/csrc/, one process per source, in parallel; what
      ptxas says of registers and spills, and the HGMMA (wgmma) and
-     UTMALDG (TMA) instructions in each library's SASS, which kernels 4
-     and 5 must have;
+     UTMALDG (TMA) instructions in each library's SASS, which kernels 2,
+     3, 4 and 5 must have;
   2. conv kernel checks — kernels 1–3 against their plain PyTorch
      versions on the card, in bf16 and in f32, at ResNet-50 site shapes
-     (batch 32) plus a ragged M and a C that is no multiple of 16;
-     kernel 2's ReLU mask against the forward's z > 0 on an input built
-     to sit on the boundary, with bf16 and with f32 y; then each kernel,
-     its plain version and a PyTorch yardstick timed at every fused site
-     shape of a ResNet-50 step, in both types, beside the card's bound;
+     (batch 32) plus ragged M (on the Hopper instances of kernels 2 and
+     3, and on the simple ones) and a C that is no multiple of 16, each
+     line naming the instance of kernels 2 and 3 that ran (`hopper` or
+     `simple`); kernel 2's ReLU mask against the forward's z > 0 on an
+     input built to sit on the boundary, with bf16 and with f32 y; two
+     launches of each Hopper instance at (6272, 1024, 512) giving
+     bitwise-equal dx and dW; then each kernel, its plain version and a
+     PyTorch yardstick timed at every fused site shape of a ResNet-50
+     step, in both types, beside the card's bound (device time from the
+     profiler's trace, `device_ms`; the wall time of back-to-back calls
+     beside it);
   3. flash kernel checks — kernels 4–6 against their plain versions at
      the LM's shape (B·H 192, S 1024, dh 128, causal, bf16), non-causal,
      a ragged S, dh 64, a non-causal chunk (Sq 512, Sk 1024) with an lse
      cotangent, f32, dh 32 with a ragged S, dh 80 (zero-padded to the
-     128 instance) and dh 200 (the 256 instance) in bf16 and f32; then
-     each timed at the LM's shape beside its bound, its plain version
-     and scaled_dot_product_attention;
+     128 instance), dh 200 (the 256 instance) in bf16 and f32, and dh
+     320 and 512 (the wide path, padded to 512) in bf16 and f32; then
+     each timed (device time) at the LM's shape beside its bound, its
+     plain version and scaled_dot_product_attention, and once more at
+     dh 512 (B·H 16, S 1024: the wide path);
   4. ResNet main path — hvd.init(), ResNet-50 at full width (224², bf16,
      batch 32) with HOROVOD_CONV_BLOCK=1, broadcast_parameters,
      DistributedOptimizer(SGD momentum 0.9) with the bucketed NCCL
@@ -57,7 +65,9 @@ BF16_FLOPS_PER_S = 989e12    # dense bf16 tensor cores, same source
 TF32_FLOPS_PER_S = 495e12    # dense tf32 tensor cores, same source
 
 CHECK_SHAPES = [(100352, 64, 256), (25088, 512, 128), (6272, 1024, 256),
-                (6272, 1024, 512), (6271, 64, 200), (1001, 24, 50)]
+                (6272, 1024, 512), (6271, 256, 1024), (6271, 64, 200),
+                (1001, 24, 50)]
+REPEAT_SHAPE = (6272, 1024, 512)  # the Hopper instances' determinism check
 # Tolerances, each relative to the reference's scale (bf16 keeps 8
 # significant bits; both sides accumulate in f32 in different orders, so
 # a rounded output may differ by one bf16 step, 2^-7 of the largest
@@ -109,6 +119,33 @@ def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int = 10, warmup: int = 2) -> float:
+    """Device time of one fn() call: every kernel (and copy) that `iters`
+    back-to-back calls run, summed from torch.profiler's trace of the
+    card, over iters; the larger of two such windows, since a trace can
+    come back with records missing (seen once in f32 on an H100). Unlike
+    time_ms it leaves out the host's time between launches: a conv
+    wrapper spends ~0.1 ms of Python and launches a call, longer than
+    its kernels. Falls back to time_ms when the trace holds no device
+    time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    best_us = 0.0
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        best_us = max(best_us, sum(getattr(e, "device_time_total", 0.0)
+                                   for e in prof.key_averages()))
+    if best_us <= 0:
+        return time_ms(fn, iters, warmup)
+    return best_us / 1e3 / iters
 
 
 def bound(kind: str, m: int, cin: int, c: int, e: int = 2):
@@ -191,8 +228,8 @@ def plain_k2(s):
 def run_k3(s):
     from horovod_tpu_torch.ops import conv_bn_backward as cbb
     return cbb.conv1x1_bn_bwd_fused(
-        s["dz"], s["y"], s["x"], s["w"], s["scale"].float(), s["mean"],
-        s["inv"], s["db"], s["dg"])
+        s["dz"], s["y"], s["x"], s["w"], s["scale"], s["mean"], s["inv"],
+        s["db"], s["dg"])
 
 
 def plain_k3(s):
@@ -243,6 +280,12 @@ def check_outputs(name, got, ref):
                          f" dW {e2:.3g} (max {float(dwr.abs().max()):.3g})")
 
 
+def instance(m, cin, c, dtype) -> str:
+    """The instance of kernels 2 and 3 that runs this shape."""
+    from horovod_tpu_torch.ops import conv_bn_backward as cbb
+    return cbb.bwd_instance(m, cin, c, dtype)
+
+
 def check_kernels(dev, dtype):
     """Kernels 1–3 against their plain versions at CHECK_SHAPES in
     `dtype`, then the mask check; returns each kernel's largest max abs
@@ -251,6 +294,7 @@ def check_kernels(dev, dtype):
     worst = {"fwd": 0.0, "act_bwd": 0.0, "bn_bwd": 0.0}
     tag = str(dtype).replace("torch.", "")
     for i, (m, cin, c) in enumerate(CHECK_SHAPES):
+        inst = instance(m, cin, c, dtype)
         s = site_inputs(m, cin, c, dev, seed=i, dtype=dtype)
         for name, run, plain in (("fwd", run_k1, plain_k1),
                                  ("act_bwd", run_k2, plain_k2),
@@ -263,8 +307,9 @@ def check_kernels(dev, dtype):
                      f"{name} at {(m, cin, c)}: non-finite output")
             err, msg = check_outputs(name, got, ref)
             worst[name] = max(worst[name], err)
-            print(f"check {name:8s} {tag} M={m:6d} Cin={cin:4d} C={c:4d}: "
-                  f"{msg}")
+            label = "" if name == "fwd" else f" [{inst}]"
+            print(f"check {name:8s} {tag} M={m:6d} Cin={cin:4d} C={c:4d}"
+                  f"{label}: {msg}")
         del s
     mask_check(dev, dtype)
     return worst
@@ -300,18 +345,41 @@ def mask_check(dev, dtype, m=25088, c=256):
     torch.cuda.synchronize()
     kmask = dx != 0
     equal = int((kmask == fwd_mask).sum())
-    print(f"check mask ({dtype}): {equal}/{m * c} equal to the forward's "
-          f"z > 0; "
+    print(f"check mask ({dtype}) [{instance(m, c, c, dtype)}]: "
+          f"{equal}/{m * c} equal to the forward's z > 0; "
           f"{on_boundary} pre-activations exactly on the boundary")
     need(on_boundary >= m, "mask check: too few boundary values")
     need(equal == m * c, f"kernel 2 mask differs at {m * c - equal} places")
     return equal, m * c, on_boundary
 
 
+def repeat_check(dev, shape=REPEAT_SHAPE):
+    """Two launches of each Hopper instance (kernels 2 and 3, bf16) on the
+    same inputs give bitwise-equal dx and dW: every sum runs in a fixed
+    order."""
+    import torch
+    m, cin, c = shape
+    need(instance(m, cin, c, torch.bfloat16) == "hopper",
+         f"{shape} does not take the Hopper instances")
+    s = site_inputs(m, cin, c, dev, seed=7)
+    out = {}
+    for name, run in (("act_bwd", run_k2), ("bn_bwd", run_k3)):
+        (dx1, dw1), (dx2, dw2) = run(s), run(s)
+        torch.cuda.synchronize()
+        same = bool(torch.equal(dx1, dx2)) and bool(torch.equal(dw1, dw2))
+        out[name] = same
+        print(f"check repeat {name} bf16 M={m} Cin={cin} C={c} [hopper]: "
+              f"two launches bitwise equal: {same}")
+        need(same, f"{name}: two launches of the Hopper instance differ")
+    return out
+
+
 def time_kernels(dev, dtype):
     """Per-step times over the 28 fused sites of a ResNet-50 step at batch
-    32 in `dtype`: kernel, plain version, PyTorch yardstick and bound,
-    each summed over the sites (site shape × its count)."""
+    32 in `dtype`: kernel, plain version, PyTorch yardstick (device time,
+    device_ms) and bound, each summed over the sites (site shape × its
+    count); and the wall time of back-to-back wrapper calls (time_ms),
+    which the host's time a call sets once the kernels are faster."""
     import torch
     from horovod_tpu_torch.models import resnet
     sites = resnet.fused_sites(50, 32, 224)
@@ -319,7 +387,7 @@ def time_kernels(dev, dtype):
     for _, _, m, cin, c in sites:
         shapes[(m, cin, c)] = shapes.get((m, cin, c), 0) + 1
     agg = {k: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
-                   bytes_ms=0.0, flops_ms=0.0)
+                   bytes_ms=0.0, flops_ms=0.0, wall_ms=0.0)
            for k in ("fwd", "act_bwd", "bn_bwd")}
     detail = []
     for i, ((m, cin, c), count) in enumerate(sorted(shapes.items())):
@@ -332,19 +400,24 @@ def time_kernels(dev, dtype):
                 ("act_bwd", run_k2, plain_k2, lambda s: library_bwd(s, dy2)),
                 ("bn_bwd", run_k3, plain_k3,
                  lambda s: library_bwd(s, dy2))):
-            t = {"ms": time_ms(lambda: run(s)),
-                 "plain_ms": time_ms(lambda: plain(s), iters=5),
-                 "library_ms": time_ms(lambda: lib(s))}
+            t = {"ms": device_ms(lambda: run(s)),
+                 "plain_ms": device_ms(lambda: plain(s), iters=5),
+                 "library_ms": device_ms(lambda: lib(s)),
+                 "wall_ms": time_ms(lambda: run(s))}
             b, tb, tf = bound(name, m, cin, c, dtype.itemsize)
             t.update(bound_ms=b, bytes_ms=tb, flops_ms=tf)
             for key, v in t.items():
                 agg[name][key] += v * count
             detail.append(dict(kernel=name, dtype=str(dtype), M=m, Cin=cin,
                                C=c, count=count, **t))
-            print(f"time {name:8s} {dtype.itemsize * 8}b M={m:6d} Cin={cin:4d} C={c:4d} x{count}: "
+            label = ("" if name == "fwd"
+                     else f" [{instance(m, cin, c, dtype)}]")
+            print(f"time {name:8s} {dtype.itemsize * 8}b M={m:6d} "
+                  f"Cin={cin:4d} C={c:4d} x{count}{label}: "
                   f"kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f}, "
                   f"library {t['library_ms']:.4f}, bound {b:.4f} "
-                  f"({'bytes' if tb >= tf else 'operations'})")
+                  f"({'bytes' if tb >= tf else 'operations'}); "
+                  f"wall of back-to-back calls {t['wall_ms']:.4f}")
         del s, dy2
     return agg, detail
 
@@ -364,6 +437,9 @@ FLASH_CHECKS = [
     ("dh 80 padded", 48, 1024, 1024, 80, True, "bfloat16", False),
     ("dh 200 (256 instance)", 48, 1024, 1024, 200, True, "bfloat16", False),
     ("f32 dh 200 + dlse", 8, 512, 512, 200, True, "float32", True),
+    ("dh 320 (wide, 512)", 16, 1024, 1024, 320, True, "bfloat16", False),
+    ("dh 512 (wide)", 16, 1024, 1024, 512, False, "bfloat16", False),
+    ("f32 dh 320 + dlse", 8, 512, 512, 320, True, "float32", True),
 ]
 
 
@@ -521,8 +597,8 @@ def time_flash(dev, bh=192, s=1024, dh=128, heads=16):
     out = {}
     for name, (run, plain, lib) in runs.items():
         b, tb, tf = flash_bound(name, bh, s, s, dh, True, 2)
-        t = {"ms": time_ms(run), "plain_ms": time_ms(plain, iters=3),
-             "library_ms": time_ms(lib) if lib else None,
+        t = {"ms": device_ms(run), "plain_ms": device_ms(plain, iters=3),
+             "library_ms": device_ms(lib) if lib else None,
              "bound_ms": b, "bytes_ms": tb, "flops_ms": tf}
         out[name] = t
         lib_s = ("n/a (in kernel 5's line)" if lib is None
@@ -536,8 +612,8 @@ def time_flash(dev, bh=192, s=1024, dh=128, heads=16):
 
 def sass_counts():
     """Per library, the HGMMA (wgmma) and UTMALDG (TMA load) instructions
-    in its SASS, read with the toolkit's cuobjdump: kernels 4 and 5 must
-    have both. None where the toolkit has no cuobjdump."""
+    in its SASS, read with the toolkit's cuobjdump: kernels 2, 3, 4 and 5
+    must have both. None where the toolkit has no cuobjdump."""
     from horovod_tpu_torch import kernels
     tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
                         "bin", "cuobjdump")
@@ -554,7 +630,8 @@ def sass_counts():
                      for op in ("HGMMA", "UTMALDG")}
         print(f"sass {name}: {out[name]['HGMMA']} HGMMA, "
               f"{out[name]['UTMALDG']} UTMALDG")
-    for name in ("flash_fwd", "flash_bwd_dkdv"):
+    for name in ("conv1x1_bn_act_bwd", "conv1x1_bn_bwd", "flash_fwd",
+                 "flash_bwd_dkdv"):
         need(out[name]["HGMMA"] > 0 and out[name]["UTMALDG"] > 0,
              f"{name}: no wgmma or TMA load in its SASS")
     return out
@@ -800,15 +877,18 @@ def main() -> int:
 
     errs = check_kernels(dev, torch.bfloat16)  # the main path's type
     errs32 = check_kernels(dev, torch.float32)
+    repeat = repeat_check(dev)
     ferrs, flash_checks = check_flash(dev)
     errs.update(ferrs)
     agg, detail = time_kernels(dev, torch.bfloat16)
     agg32, detail32 = time_kernels(dev, torch.float32)
-    for k, t in agg32.items():
-        print(f"time {k} f32 per ResNet-50 step: kernel {t['ms']:.4f} ms, "
-              f"plain {t['plain_ms']:.4f}, library {t['library_ms']:.4f}, "
-              f"bound {t['bound_ms']:.4f}")
+    for tag, a in (("bf16", agg), ("f32", agg32)):
+        for k, t in a.items():
+            print(f"time {k} {tag} per ResNet-50 step: kernel "
+                  f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f}, library "
+                  f"{t['library_ms']:.4f}, bound {t['bound_ms']:.4f}")
     agg.update(time_flash(dev))
+    wide = time_flash(dev, bh=16, s=1024, dh=512, heads=16)  # the wide path
     torch.cuda.empty_cache()
 
     hvd.init()
@@ -850,7 +930,8 @@ def main() -> int:
                          text=True, timeout=60).stdout.strip().splitlines()
     os.makedirs("chiprun_out", exist_ok=True)
     with open("chiprun_out/chip_smoke.json", "w") as f:
-        json.dump({"build_s": build_s, "sass": sass,
+        json.dump({"build_s": build_s, "sass": sass, "repeat": repeat,
+                   "flash_wide_dh512": wide,
                    "kernels": line["kernels"],
                    "sites": detail + detail32, "conv_f32": agg32,
                    "conv_f32_max_abs_err": errs32,

@@ -10,16 +10,25 @@
 // does.
 //
 // On the H100 it is bound by bytes at most sites (it reads dz and y
-// twice, once per product, and x once; it does 2*Cin*C/(2*Cin+2*C)
-// operations per byte or fewer). dy, which the unfused backward writes
-// and reads twice, is formed in the loaders of both products from dz, y
-// and the per-channel rows, rounded to the input type (a no-op in f32)
-// and never stored. The mask is recomputed there in f32 with separately rounded multiplies and adds,
-// so it equals the forward's z > 0. The TPU grid was sequential and kept
-// dW in one resident accumulator; here dx and dW are two launches over
-// parallel blocks: dx accumulates over all of C in registers and rounds
-// once; dW is split over M into f32 partials that a fixed-order pass adds.
-#include "conv1x1_gemm.cuh"
+// once per product and x once; it does 2*Cin*C/(2*Cin+2*C) operations
+// per byte or fewer). dy, which the unfused backward writes and reads
+// twice, is formed on chip from dz, y and the per-channel rows, rounded
+// to the input type (a no-op in f32) and never stored. The mask is
+// recomputed in f32 with separately rounded multiplies and adds
+// (dy_value, built with -fmad=false), so it equals the forward's z > 0.
+// The TPU grid was sequential and kept dW in one resident accumulator;
+// here dx and dW are two launches over parallel blocks, dW split over M
+// and summed in a fixed order.
+//
+// Two instances, chosen by the wrapper from shape and dtype alone
+// (ops/conv_bn_backward.py bwd_instance):
+//   hvd_conv1x1_bn_act_bwd_hopper: bf16 with Cin, C multiples of 8 in
+//     [64, 1024] (every ResNet-50 site): wgmma, TMA rings, dy formed once
+//     per product per block, dW split-K summed through thread-block
+//     clusters (conv1x1_bwd_hopper.cuh, whose note gives the design);
+//   hvd_conv1x1_bn_act_bwd_{bf16,f32}: every other shape, and f32: the
+//     simple mma.sync GEMM of conv1x1_gemm.cuh, dy formed in its loaders.
+#include "conv1x1_bwd_hopper.cuh"
 
 namespace hvd {
 template <class T>
@@ -57,3 +66,27 @@ int launch_bn_act_bwd(const void* dz, const void* y, const void* x,
   }
 HVD_BN_ACT_BWD(bf16, hvd::bf16)
 HVD_BN_ACT_BWD(f32, float)
+
+extern "C" int hvd_conv1x1_bn_act_bwd_hopper(
+    const void* dz, const void* y, const void* x, const void* w,
+    const void* g, const void* mean, const void* inv, const void* a,
+    const void* b, const void* scale, const void* bias, void* dx, void* ws,
+    void* dw, int M, int Cin, int C, int nb, int ct, int nt, int clusters,
+    int chunk, void* stream) {
+  using hvd::bf16;
+  hvd::cbh::Rows rows{static_cast<const float*>(g),
+                      static_cast<const float*>(mean),
+                      static_cast<const float*>(inv),
+                      static_cast<const float*>(a),
+                      static_cast<const float*>(b),
+                      static_cast<const float*>(scale),
+                      static_cast<const float*>(bias)};
+  return hvd::cbh::launch_bwd_hopper<true>(
+      static_cast<const bf16*>(dz), static_cast<const bf16*>(y),
+      static_cast<const bf16*>(x), static_cast<const bf16*>(w), rows,
+      static_cast<bf16*>(dx), static_cast<float*>(ws),
+      static_cast<float*>(dw), M, Cin, C, nb, ct, nt, clusters, chunk,
+      reinterpret_cast<cudaStream_t>(stream));
+}
+
+HVD_FOLD_ROWS_ENTRY(hvd_conv1x1_bn_act_fold_rows)

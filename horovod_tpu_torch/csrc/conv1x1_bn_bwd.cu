@@ -7,12 +7,13 @@
 // f32 rows (g, mean, inv, a, b); outputs dx [M][Cin] in the input type
 // and dW [Cin][C] f32.
 //
-// Bound and design as kernel 2 (conv1x1_bn_act_bwd.cu): bytes-bound at
-// most sites; dy = (g*dz - a) - b*xhat is formed in the loaders of both
-// products, rounded to the input type and never stored; dx accumulates
-// over C in registers; dW is split over M into f32 partials added in a
-// fixed order.
-#include "conv1x1_gemm.cuh"
+// Bound, design and instances as kernel 2 (conv1x1_bn_act_bwd.cu), of
+// which it is the MASK = false instance: bytes-bound at most sites;
+// dy = (g*dz - a) - b*xhat formed on chip, rounded to the input type
+// and never stored; hvd_conv1x1_bn_bwd_hopper for bf16 at Cin, C
+// multiples of 8 in [64, 1024] (conv1x1_bwd_hopper.cuh), the simple
+// mma.sync code (conv1x1_gemm.cuh) for f32 and every other shape.
+#include "conv1x1_bwd_hopper.cuh"
 
 namespace hvd {
 template <class T>
@@ -46,3 +47,24 @@ int launch_bn_bwd(const void* dz, const void* y, const void* x,
   }
 HVD_BN_BWD(bf16, hvd::bf16)
 HVD_BN_BWD(f32, float)
+
+extern "C" int hvd_conv1x1_bn_bwd_hopper(
+    const void* dz, const void* y, const void* x, const void* w,
+    const void* g, const void* mean, const void* inv, const void* a,
+    const void* b, void* dx, void* ws, void* dw, int M, int Cin, int C,
+    int nb, int ct, int nt, int clusters, int chunk, void* stream) {
+  using hvd::bf16;
+  hvd::cbh::Rows rows{static_cast<const float*>(g),
+                      static_cast<const float*>(mean),
+                      static_cast<const float*>(inv),
+                      static_cast<const float*>(a),
+                      static_cast<const float*>(b), nullptr, nullptr};
+  return hvd::cbh::launch_bwd_hopper<false>(
+      static_cast<const bf16*>(dz), static_cast<const bf16*>(y),
+      static_cast<const bf16*>(x), static_cast<const bf16*>(w), rows,
+      static_cast<bf16*>(dx), static_cast<float*>(ws),
+      static_cast<float*>(dw), M, Cin, C, nb, ct, nt, clusters, chunk,
+      reinterpret_cast<cudaStream_t>(stream));
+}
+
+HVD_FOLD_ROWS_ENTRY(hvd_conv1x1_bn_fold_rows)

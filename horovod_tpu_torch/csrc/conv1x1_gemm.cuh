@@ -129,12 +129,30 @@ struct Plain {
   }
 };
 
-// The BN-backward input gradient dy [M][C], formed from dz and y as it is
-// loaded:  xhat = (y - mean) * inv
-//          MASK: dz = (xhat * s + bias > 0) ? dz : 0   (the forward's ReLU)
-//          dy = (g * dz - a) - b * xhat, rounded to T (a no-op in f32).
+// One element of the BN-backward input gradient, before its rounding to
+// the element type, from dz and y (as f32) and its channel's rows:
+//   xhat = (y - mean) * inv
+//   MASK: dz = (xhat * s + bias > 0) ? dz : 0   (the forward's ReLU)
+//   dy = (g * dz - a) - b * xhat.
 // Every float op is a separately rounded intrinsic, in the order of the
-// plain PyTorch version, so dy and the mask match it bit for bit.
+// plain PyTorch version, so dy and the mask match it bit for bit. Both
+// the simple loaders (Dy below) and the Hopper kernels
+// (conv1x1_bwd_hopper.cuh) form dy here.
+template <bool MASK>
+__device__ __forceinline__ float dy_value(float dz, float y, float g,
+                                          float mean, float inv, float a,
+                                          float b, float s, float bias) {
+  const float xhat = __fmul_rn(__fsub_rn(y, mean), inv);
+  if (MASK) {
+    const float zpre = __fadd_rn(__fmul_rn(xhat, s), bias);
+    dz = zpre > 0.f ? dz : 0.f;
+  }
+  return __fsub_rn(__fsub_rn(__fmul_rn(g, dz), a), __fmul_rn(b, xhat));
+}
+
+// The BN-backward input gradient dy [M][C] as an operand source of the
+// simple GEMM: formed by dy_value from dz and y as the tile is loaded,
+// rounded to T (a no-op in f32).
 template <bool MASK, class T>
 struct Dy {
   typedef T elem;
@@ -152,16 +170,10 @@ struct Dy {
     for (int j = 0; j < 8; ++j) {
       int cc = c + j;
       if (r < rows && cc < cols) {
-        float xhat = __fmul_rn(__fsub_rn(Elt<T>::to_f32(raw.b.v[j]),
-                                         mean[cc]),
-                               inv[cc]);
-        float d = Elt<T>::to_f32(raw.a.v[j]);
-        if (MASK) {
-          float zpre = __fadd_rn(__fmul_rn(xhat, s[cc]), bias[cc]);
-          d = zpre > 0.f ? d : 0.f;
-        }
-        float t = __fsub_rn(__fsub_rn(__fmul_rn(g[cc], d), a[cc]),
-                            __fmul_rn(b[cc], xhat));
+        float t = dy_value<MASK>(
+            Elt<T>::to_f32(raw.a.v[j]), Elt<T>::to_f32(raw.b.v[j]), g[cc],
+            mean[cc], inv[cc], a[cc], b[cc], MASK ? s[cc] : 0.f,
+            MASK ? bias[cc] : 0.f);
         o.v[j] = Elt<T>::operand(Elt<T>::from_f32(t));
       } else {
         o.v[j] = Elt<T>::zero();
@@ -305,6 +317,69 @@ inline void colsum(const float* ws, float* out, int nb, int n,
                    cudaStream_t st) {
   colsum_kernel<<<(n + 255) / 256, 256, 0, st>>>(ws, out, nb, n);
 }
+
+// The per-channel rows of kernels 2 and 3 from the wrapper's inputs, in
+// the order and rounding of the plain version's fold_rows, one launch in
+// place of a handful of small PyTorch ones:
+//   g = scale * inv
+//   a = g * dbeta * minv  (- dmean * minv)
+//   b = g * dgamma * minv (- 2 * dvar * minv / inv)
+// and the mask's rows: s = scale and bias (relu), or 0 and 1 (which
+// makes the mask all-true). scale and bias are P (bf16 or f32); dmean,
+// dvar and bias may be null. out[5][C] = g, a, b, s, bias.
+template <class P>
+__global__ void fold_kernel(const P* __restrict__ scale,
+                            const P* __restrict__ bias,
+                            const float* __restrict__ inv,
+                            const float* __restrict__ dbeta,
+                            const float* __restrict__ dgamma,
+                            const float* __restrict__ dmean,
+                            const float* __restrict__ dvar, float minv,
+                            int relu, float* __restrict__ out, int C) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= C) return;
+  const float s = Elt<P>::to_f32(scale[i]), iv = inv[i];
+  const float g = __fmul_rn(s, iv);
+  float a = __fmul_rn(__fmul_rn(g, dbeta[i]), minv);
+  float b = __fmul_rn(__fmul_rn(g, dgamma[i]), minv);
+  if (dmean) a = __fsub_rn(a, __fmul_rn(dmean[i], minv));
+  if (dvar)
+    b = __fsub_rn(b, __fdiv_rn(__fmul_rn(__fmul_rn(2.f, dvar[i]), minv), iv));
+  out[i] = g;
+  out[C + i] = a;
+  out[2 * C + i] = b;
+  out[3 * C + i] = relu ? s : 0.f;
+  out[4 * C + i] = relu ? Elt<P>::to_f32(bias[i]) : 1.f;
+}
+
+}  // namespace hvd
+
+// The C entry point of fold_kernel, defined by each backward source.
+#define HVD_FOLD_ROWS_ENTRY(NAME)                                           \
+  extern "C" int NAME(const void* scale, const void* bias, const void* inv, \
+                      const void* dbeta, const void* dgamma,                \
+                      const void* dmean, const void* dvar, void* out, int C,\
+                      float minv, int relu, int param_bf16, void* stream) { \
+    cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);               \
+    const int nb = (C + 255) / 256;                                         \
+    const float *iv = static_cast<const float*>(inv),                       \
+                *db = static_cast<const float*>(dbeta),                     \
+                *dg = static_cast<const float*>(dgamma),                    \
+                *dm = static_cast<const float*>(dmean),                     \
+                *dv = static_cast<const float*>(dvar);                      \
+    if (param_bf16)                                                         \
+      hvd::fold_kernel<hvd::bf16><<<nb, 256, 0, st>>>(                      \
+          static_cast<const hvd::bf16*>(scale),                             \
+          static_cast<const hvd::bf16*>(bias), iv, db, dg, dm, dv, minv,    \
+          relu, static_cast<float*>(out), C);                               \
+    else                                                                    \
+      hvd::fold_kernel<float><<<nb, 256, 0, st>>>(                          \
+          static_cast<const float*>(scale), static_cast<const float*>(bias),\
+          iv, db, dg, dm, dv, minv, relu, static_cast<float*>(out), C);     \
+    return (int)cudaGetLastError();                                         \
+  }
+
+namespace hvd {
 
 // ---------------------------------------------------------------------
 // Backward: dx = dy . w^T and dW = x^T . dy, dy formed in the loaders.

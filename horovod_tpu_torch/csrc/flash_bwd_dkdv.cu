@@ -2,7 +2,8 @@
 //
 // Replaces the Pallas TPU kernel horovod_tpu/ops/flash_attention.py _bwd
 // -> _bwd_dkdv_kernel. Inputs q, o, do [BH][Sq][D], k, v [BH][Sk][D]
-// (bf16 or f32; D 32, 64, 128 or 256), lse [BH][Sq] f32 and, in the
+// (bf16 or f32; D 32, 64, 128, 256 or a larger multiple of 256), lse
+// [BH][Sq] f32 and, in the
 // variant with an lse cotangent, dlse [BH][Sq] f32; outputs dk, dv
 // [BH][Sk][D] in the input type, and delta [BH][Sq] f32, which kernel 6
 // reads.
@@ -44,7 +45,11 @@
 // to stay inside shared memory); each warp recomputes s^T, p^T, dp^T
 // and ds^T for its 16 keys on mma.sync with synchronous tile loads, and
 // p^T, ds^T pass through its slice of shared memory. tf32 wgmma takes
-// only K-major operands, and neither case is on the main path.
+// only K-major operands, and neither case is on the main path. Its D 256
+// instance is also the wide path for head dims above 256
+// (flash_common.cuh): s^T and dp^T over every 256-column chunk, k, v,
+// q, do streamed chunk by chunk, and the window blockIdx.z of dk and dv
+// from q's and do's windows; right, not fast.
 #include <type_traits>
 
 #include "flash_common.cuh"
@@ -53,21 +58,20 @@
 namespace hvd {
 namespace flash {
 
-// delta[row] = sum over d of do[row][d] * o[row][d] (minus dlse[row]),
-// one warp per row.
-template <class T, int D, bool HAS_DLSE>
+// delta[row] = sum over d < width of do[row][d] * o[row][d] (minus
+// dlse[row]), one warp per row.
+template <class T, bool HAS_DLSE>
 __global__ void __launch_bounds__(NT)
     delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
                  const float* __restrict__ dlse, float* __restrict__ delta,
-                 int rows) {
+                 int rows, int width) {
   const int row = blockIdx.x * WARPS + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   if (row >= rows) return;
   float s = 0.f;
-#pragma unroll
-  for (int d = lane; d < D; d += 32)
-    s += Ty<T>::to_f32(dout[(size_t)row * D + d]) *
-         Ty<T>::to_f32(o[(size_t)row * D + d]);
+  for (int d = lane; d < width; d += 32)
+    s += Ty<T>::to_f32(dout[(size_t)row * width + d]) *
+         Ty<T>::to_f32(o[(size_t)row * width + d]);
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
     s += __shfl_xor_sync(0xffffffffu, s, off);
@@ -81,7 +85,7 @@ __global__ void __launch_bounds__(NT)
                 const float* __restrict__ lse,
                 const float* __restrict__ delta, T* __restrict__ dk,
                 T* __restrict__ dv, int Sq, int Sk, float scale,
-                int causal) {
+                int causal, int width) {
   constexpr int KT = stream_rows<T, D>();  // rows of a q, do tile
   typedef Ld<T, D, KT> L;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -97,32 +101,54 @@ __global__ void __launch_bounds__(NT)
   float* sD = sL + KT;
   const int bh = blockIdx.x;
   const int k0 = blockIdx.y * TILE;  // heaviest causal tiles first
-  const T* qb = q + (size_t)bh * Sq * D;
-  const T* ob = dout + (size_t)bh * Sq * D;
+  // The wide path: scores over n_ch chunks of D columns, the window win
+  // of dk and dv.
+  // Below D 256 the width is D at compile time, so those instances
+  // compile as if the wide path were not there.
+  const int W = D < 256 ? D : width;
+  const int n_ch = W / D, win = blockIdx.z * D;
+  const T* qb = q + (size_t)bh * Sq * W;
+  const T* ob = dout + (size_t)bh * Sq * W;
+  const T* kb = k + (size_t)bh * Sk * W;
+  const T* vb = v + (size_t)bh * Sk * W;
   const float* lb = lse + (size_t)bh * Sq;
   const float* db = delta + (size_t)bh * Sq;
   const int key_lo = k0 + warp * 16 + (lane >> 2);  // and key_lo + 8
-  load_tile<T, D>(sK, k + (size_t)bh * Sk * D, k0, Sk);
-  load_tile<T, D>(sV, v + (size_t)bh * Sk * D, k0, Sk);
+  if (n_ch == 1) {
+    load_tile<T, D>(sK, kb, k0, Sk);
+    load_tile<T, D>(sV, vb, k0, Sk);
+  }
 
   float dk_acc[D / 8][4], dv_acc[D / 8][4];
   zero<D / 8>(dk_acc);
   zero<D / 8>(dv_acc);
   for (int q0 = causal ? k0 : 0; q0 < Sq; q0 += KT) {
-    __syncthreads();
-    load_tile<T, D, KT>(sQ, qb, q0, Sq);
-    load_tile<T, D, KT>(sO, ob, q0, Sq);
-    if (threadIdx.x < KT) {
-      int r = q0 + threadIdx.x;
-      sL[threadIdx.x] = r < Sq ? lb[r] : INFINITY;  // no such query: p = 0
-      sD[threadIdx.x] = r < Sq ? db[r] : 0.f;
-    }
-    __syncthreads();
     float st[KT / 8][4], dpt[KT / 8][4];
     zero<KT / 8>(st);
     zero<KT / 8>(dpt);
-    mma_nt<T, KT / 8, D>(st, sK, L::TILE_LD, warp * 16, sQ, L::TILE_LD);
-    mma_nt<T, KT / 8, D>(dpt, sV, L::TILE_LD, warp * 16, sO, L::TILE_LD);
+    for (int ch = 0; ch < n_ch; ++ch) {
+      __syncthreads();
+      if (n_ch > 1) {
+        load_tile<T, D>(sK, kb + ch * D, k0, Sk, W);
+        load_tile<T, D>(sV, vb + ch * D, k0, Sk, W);
+      }
+      load_tile<T, D, KT>(sQ, qb + ch * D, q0, Sq, W);
+      load_tile<T, D, KT>(sO, ob + ch * D, q0, Sq, W);
+      if (ch == 0 && threadIdx.x < KT) {
+        int r = q0 + threadIdx.x;
+        sL[threadIdx.x] = r < Sq ? lb[r] : INFINITY;  // no such query: p = 0
+        sD[threadIdx.x] = r < Sq ? db[r] : 0.f;
+      }
+      __syncthreads();
+      mma_nt<T, KT / 8, D>(st, sK, L::TILE_LD, warp * 16, sQ, L::TILE_LD);
+      mma_nt<T, KT / 8, D>(dpt, sV, L::TILE_LD, warp * 16, sO, L::TILE_LD);
+    }
+    if (n_ch > 1) {  // q's and do's windows for dk and dv
+      __syncthreads();
+      load_tile<T, D, KT>(sQ, qb + win, q0, Sq, W);
+      load_tile<T, D, KT>(sO, ob + win, q0, Sq, W);
+      __syncthreads();
+    }
 #pragma unroll
     for (int j = 0; j < KT / 8; ++j)
 #pragma unroll
@@ -140,15 +166,17 @@ __global__ void __launch_bounds__(NT)
     mma_nn<T, D / 8, KT>(dk_acc, sS, L::P_LD, sQ, L::TILE_LD);
   }
   const int r0 = k0 + warp * 16;
-  store_rows<T, D>(dk + (size_t)bh * Sk * D, dk_acc, r0, Sk, 1.f, 1.f);
-  store_rows<T, D>(dv + (size_t)bh * Sk * D, dv_acc, r0, Sk, 1.f, 1.f);
+  store_rows<T, D>(dk + (size_t)bh * Sk * W + win, dk_acc, r0, Sk, 1.f,
+                   1.f, W);
+  store_rows<T, D>(dv + (size_t)bh * Sk * W + win, dv_acc, r0, Sk, 1.f,
+                   1.f, W);
 }
 
 template <class T, int D>
 int launch_simple(const void* q, const void* k, const void* v,
                   const void* dout, const void* lse, const void* delta,
                   void* dk, void* dv, int BH, int Sq, int Sk, float scale,
-                  int causal, cudaStream_t st) {
+                  int causal, int width, cudaStream_t st) {
   typedef Ld<T, D, stream_rows<T, D>()> L;
   const int smem = (2 * L::TILE_ELEMS + 2 * L::KT_ELEMS +
                     2 * WARPS * L::P_ELEMS) *
@@ -156,12 +184,13 @@ int launch_simple(const void* q, const void* k, const void* v,
                    2 * stream_rows<T, D>() * (int)sizeof(float);
   cudaError_t e = allow_smem(dkdv_kernel<T, D>, smem);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid(BH, (Sk + TILE - 1) / TILE);
+  dim3 grid(BH, (Sk + TILE - 1) / TILE, width / D);
   dkdv_kernel<T, D><<<grid, NT, smem, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dk), static_cast<T*>(dv), Sq, Sk, scale, causal);
+      static_cast<T*>(dk), static_cast<T*>(dv), Sq, Sk, scale, causal,
+      width);
   return (int)cudaGetLastError();
 }
 
@@ -382,21 +411,24 @@ int launch_hopper(const void* q, const void* k, const void* v,
   return (int)cudaGetLastError();
 }
 
+// width: the head dim in device memory (D, or a multiple of 256 above
+// it for the wide path of the D 256 instance).
 template <class T, int D>
-int launch(const void* q, const void* k, const void* v, const void* o,
-           const void* dout, const void* lse, const void* dlse, void* delta,
-           void* dk, void* dv, int BH, int Sq, int Sk, float scale,
-           int causal, void* stream) {
+int launch(int width, const void* q, const void* k, const void* v,
+           const void* o, const void* dout, const void* lse,
+           const void* dlse, void* delta, void* dk, void* dv, int BH, int Sq,
+           int Sk, float scale, int causal, void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   const int rows = BH * Sq, nb = (rows + WARPS - 1) / WARPS;
   if (dlse)
-    delta_kernel<T, D, true><<<nb, NT, 0, st>>>(
+    delta_kernel<T, true><<<nb, NT, 0, st>>>(
         static_cast<const T*>(o), static_cast<const T*>(dout),
-        static_cast<const float*>(dlse), static_cast<float*>(delta), rows);
+        static_cast<const float*>(dlse), static_cast<float*>(delta), rows,
+        width);
   else
-    delta_kernel<T, D, false><<<nb, NT, 0, st>>>(
+    delta_kernel<T, false><<<nb, NT, 0, st>>>(
         static_cast<const T*>(o), static_cast<const T*>(dout), nullptr,
-        static_cast<float*>(delta), rows);
+        static_cast<float*>(delta), rows, width);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   if constexpr (std::is_same<T, bf16>::value && D <= 128)
@@ -404,7 +436,7 @@ int launch(const void* q, const void* k, const void* v, const void* o,
                             scale, causal, st);
   else
     return launch_simple<T, D>(q, k, v, dout, lse, delta, dk, dv, BH, Sq,
-                               Sk, scale, causal, st);
+                               Sk, scale, causal, width, st);
 }
 
 }  // namespace flash

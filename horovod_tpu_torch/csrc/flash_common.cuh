@@ -7,6 +7,17 @@
 // types: bf16 (mma m16n8k16) or f32 (mma m16n8k8 on tf32; every operand
 // is rounded to tf32 as its fragment is loaded). D in {32, 64, 128, 256}.
 //
+// The wide path (head dims above 256, zero-padded by the wrapper to a
+// multiple of 256): the simple kernels' D 256 instances take a runtime
+// `width`, the head dim in device memory, of which D 256 is the case
+// width == 256. The score products (q.k^T, do.v^T) run over all of it,
+// streamed through shared memory 256 columns at a time, so no tile is
+// wider than the D 256 instance's; the outputs (o, dq, dk, dv) are cut
+// into 256-wide windows of columns on grid axis z, and the block of
+// window z recomputes the scores it needs and writes that window. lse
+// (kernel 4) is written by window 0; every window computes the same
+// values in the same order.
+//
 // A block has 4 warps and works on one 64-row tile of its own (queries
 // for the forward and dQ, keys for dK/dV); each warp owns 16 of those
 // rows. It walks the other sequence 64 rows at a time through shared
@@ -98,18 +109,19 @@ __host__ __device__ constexpr int stream_rows() {
   return sizeof(T) == 4 && D == 256 ? 32 : TILE;
 }
 
-// sm[0 .. ROWS) rows <- g rows [r0, r0 + ROWS) of a [rows][D] matrix;
-// rows at or past `rows` are zero. 16-byte loads and stores.
+// sm[0 .. ROWS) rows <- D columns of g rows [r0, r0 + ROWS) of a
+// [rows][ld] matrix (g points at the first column); rows at or past
+// `rows` are zero. 16-byte loads and stores.
 template <class T, int D, int ROWS = TILE>
 __device__ __forceinline__ void load_tile(T* sm, const T* g, int r0,
-                                          int rows) {
+                                          int rows, int ld = D) {
   constexpr int VEC = 16 / sizeof(T);
   constexpr int PER_ROW = D / VEC;
   for (int i = threadIdx.x; i < ROWS * PER_ROW; i += NT) {
     int r = i / PER_ROW, c = (i % PER_ROW) * VEC;
     uint4 v = make_uint4(0u, 0u, 0u, 0u);
     if (r0 + r < rows)
-      v = *reinterpret_cast<const uint4*>(g + (size_t)(r0 + r) * D + c);
+      v = *reinterpret_cast<const uint4*>(g + (size_t)(r0 + r) * ld + c);
     *reinterpret_cast<uint4*>(sm + r * Ld<T, D>::TILE_LD + c) = v;
   }
 }
@@ -177,19 +189,20 @@ __device__ __forceinline__ int acc_col(int j, int e) {
 }
 
 // Stores a warp's 16 x D accumulator, divided by div0 (rows 0..7) or
-// div1 (rows 8..15), as rows r0 + 0..15 of a [rows][D] matrix; rows at
-// or past `rows` are skipped.
+// div1 (rows 8..15), as D columns of rows r0 + 0..15 of a [rows][ld]
+// matrix (out points at the first column); rows at or past `rows` are
+// skipped.
 template <class T, int D>
 __device__ __forceinline__ void store_rows(T* out, const float (*acc)[4],
                                            int r0, int rows, float div0,
-                                           float div1) {
+                                           float div1, int ld = D) {
 #pragma unroll
   for (int j = 0; j < D / 8; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       int r = r0 + acc_row(e);
       if (r < rows)
-        out[(size_t)r * D + acc_col(j, e)] =
+        out[(size_t)r * ld + acc_col(j, e)] =
             Ty<T>::from_f32(acc[j][e] / (e >> 1 ? div1 : div0));
     }
 }
@@ -223,21 +236,24 @@ inline cudaError_t allow_smem(K kernel, int bytes) {
 }  // namespace hvd
 
 // One extern "C" entry point per source dispatches on (is_f32, D) to the
-// instance LAUNCH<T, D>(args...); any other D returns
-// cudaErrorInvalidValue (the Python wrapper pads dh up to an instance
-// and refuses dh > 256 first).
-#define HVD_FLASH_DISPATCH(LAUNCH, is_f32, D, ...)            \
-  do {                                                        \
-    if (is_f32) {                                             \
-      if (D == 32) return LAUNCH<float, 32>(__VA_ARGS__);     \
-      if (D == 64) return LAUNCH<float, 64>(__VA_ARGS__);     \
-      if (D == 128) return LAUNCH<float, 128>(__VA_ARGS__);   \
-      if (D == 256) return LAUNCH<float, 256>(__VA_ARGS__);   \
-    } else {                                                  \
-      if (D == 32) return LAUNCH<hvd::bf16, 32>(__VA_ARGS__); \
-      if (D == 64) return LAUNCH<hvd::bf16, 64>(__VA_ARGS__); \
-      if (D == 128) return LAUNCH<hvd::bf16, 128>(__VA_ARGS__); \
-      if (D == 256) return LAUNCH<hvd::bf16, 256>(__VA_ARGS__); \
-    }                                                         \
-    return (int)cudaErrorInvalidValue;                        \
+// instance LAUNCH<T, inst>(D, args...): inst is D for D in {32, 64, 128,
+// 256}, and 256 (the wide path, width D) for any larger multiple of 256;
+// any other D returns cudaErrorInvalidValue (the Python wrapper pads dh
+// up to one of these first).
+#define HVD_FLASH_DISPATCH(LAUNCH, is_f32, D, ...)                      \
+  do {                                                                  \
+    if (is_f32) {                                                       \
+      if (D == 32) return LAUNCH<float, 32>(D, __VA_ARGS__);            \
+      if (D == 64) return LAUNCH<float, 64>(D, __VA_ARGS__);            \
+      if (D == 128) return LAUNCH<float, 128>(D, __VA_ARGS__);          \
+      if (D >= 256 && D % 256 == 0)                                     \
+        return LAUNCH<float, 256>(D, __VA_ARGS__);                      \
+    } else {                                                            \
+      if (D == 32) return LAUNCH<hvd::bf16, 32>(D, __VA_ARGS__);        \
+      if (D == 64) return LAUNCH<hvd::bf16, 64>(D, __VA_ARGS__);        \
+      if (D == 128) return LAUNCH<hvd::bf16, 128>(D, __VA_ARGS__);      \
+      if (D >= 256 && D % 256 == 0)                                     \
+        return LAUNCH<hvd::bf16, 256>(D, __VA_ARGS__);                  \
+    }                                                                   \
+    return (int)cudaErrorInvalidValue;                                  \
   } while (0)

@@ -2,7 +2,7 @@
 //
 // Replaces the Pallas TPU kernel horovod_tpu/ops/flash_attention.py _fwd
 // -> _fwd_kernel. Inputs q [BH][Sq][D], k, v [BH][Sk][D], bf16 or f32, D
-// 32, 64, 128 or 256; outputs o [BH][Sq][D] in the input type and lse
+// 32, 64, 128, 256 or a larger multiple of 256; outputs o [BH][Sq][D] in the input type and lse
 // [BH][Sq] f32, the log-sum-exp of each row of scaled scores, which the
 // backward kernels and chunk merges read. Causal masking uses the JAX
 // kernel's -1e30; keys past Sk are -inf, so any S is taken; rows with l
@@ -36,7 +36,10 @@
 // version on mma.sync with synchronous 64-row tile loads and p through
 // the warp's slice of shared memory. tf32 wgmma takes only K-major
 // operands, so p.v would need a transposed copy of v, and neither case
-// is on the main path.
+// is on the main path. Its D 256 instance is also the wide path for
+// head dims above 256 (flash_common.cuh): q.k^T over every 256-column
+// chunk of q and k, both streamed through the 256-wide tiles, and o's
+// window blockIdx.z; right, not fast.
 #include <type_traits>
 
 #include "flash_common.cuh"
@@ -50,7 +53,7 @@ __global__ void __launch_bounds__(NT)
     fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                const T* __restrict__ v, T* __restrict__ o,
                float* __restrict__ lse, int Sq, int Sk, float scale,
-               int causal) {
+               int causal, int width) {
   typedef Ld<T, D> L;
   extern __shared__ __align__(16) unsigned char smem[];
   T* sQ = reinterpret_cast<T*>(smem);
@@ -61,25 +64,33 @@ __global__ void __launch_bounds__(NT)
   const int bh = blockIdx.x;
   // Heaviest causal tiles (the last queries) are scheduled first.
   const int q0 = (gridDim.y - 1 - blockIdx.y) * TILE;
-  const T* qb = q + (size_t)bh * Sq * D;
-  const T* kb = k + (size_t)bh * Sk * D;
-  const T* vb = v + (size_t)bh * Sk * D;
+  // The wide path: scores over n_ch chunks of D columns, o's window win.
+  // Below D 256 the width is D at compile time, so those instances
+  // compile as if the wide path were not there.
+  const int W = D < 256 ? D : width;
+  const int n_ch = W / D, win = blockIdx.z * D;
+  const T* qb = q + (size_t)bh * Sq * W;
+  const T* kb = k + (size_t)bh * Sk * W;
+  const T* vb = v + (size_t)bh * Sk * W;
   const int r_lo = q0 + warp * 16 + (lane >> 2);  // this thread's rows:
                                                    // r_lo and r_lo + 8
-  load_tile<T, D>(sQ, qb, q0, Sq);
+  if (n_ch == 1) load_tile<T, D>(sQ, qb, q0, Sq);
 
   float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
   float acc[D / 8][4];
   zero<D / 8>(acc);
   const int k_end = causal ? min(Sk, q0 + TILE) : Sk;
   for (int k0 = 0; k0 < k_end; k0 += TILE) {
-    __syncthreads();  // the previous tiles' readers are done
-    load_tile<T, D>(sK, kb, k0, Sk);
-    load_tile<T, D>(sV, vb, k0, Sk);
-    __syncthreads();
     float s[TILE / 8][4];
     zero<TILE / 8>(s);
-    mma_nt<T, TILE / 8, D>(s, sQ, L::TILE_LD, warp * 16, sK, L::TILE_LD);
+    for (int ch = 0; ch < n_ch; ++ch) {
+      __syncthreads();  // the previous tiles' readers are done
+      if (n_ch > 1) load_tile<T, D>(sQ, qb + ch * D, q0, Sq, W);
+      load_tile<T, D>(sK, kb + ch * D, k0, Sk, W);
+      if (ch == n_ch - 1) load_tile<T, D>(sV, vb + win, k0, Sk, W);
+      __syncthreads();
+      mma_nt<T, TILE / 8, D>(s, sQ, L::TILE_LD, warp * 16, sK, L::TILE_LD);
+    }
     float mx[2] = {m[0], m[1]};
 #pragma unroll
     for (int j = 0; j < TILE / 8; ++j)
@@ -126,9 +137,9 @@ __global__ void __launch_bounds__(NT)
   float safe[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) safe[h] = l[h] > 0.f ? l[h] : 1.f;
-  store_rows<T, D>(o + (size_t)bh * Sq * D, acc, q0 + warp * 16, Sq,
-                   safe[0], safe[1]);
-  if ((lane & 3) == 0) {
+  store_rows<T, D>(o + (size_t)bh * Sq * W + win, acc, q0 + warp * 16,
+                   Sq, safe[0], safe[1], W);
+  if ((lane & 3) == 0 && blockIdx.z == 0) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       int r = r_lo + h * 8;
@@ -140,18 +151,18 @@ __global__ void __launch_bounds__(NT)
 template <class T, int D>
 int launch_simple(const void* q, const void* k, const void* v, void* o,
                   void* lse, int BH, int Sq, int Sk, float scale, int causal,
-                  void* stream) {
+                  int width, void* stream) {
   typedef Ld<T, D> L;
   const int smem =
       (3 * L::TILE_ELEMS + WARPS * L::P_ELEMS) * (int)sizeof(T);
   cudaError_t e = allow_smem(fwd_kernel<T, D>, smem);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid(BH, (Sq + TILE - 1) / TILE);
+  dim3 grid(BH, (Sq + TILE - 1) / TILE, width / D);
   fwd_kernel<T, D><<<grid, NT, smem, reinterpret_cast<cudaStream_t>(
                                          stream)>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse),
-      Sq, Sk, scale, causal);
+      Sq, Sk, scale, causal, width);
   return (int)cudaGetLastError();
 }
 
@@ -392,15 +403,18 @@ int launch_hopper(const void* q, const void* k, const void* v, void* o,
   return (int)cudaGetLastError();
 }
 
+// width: the head dim in device memory (D, or a multiple of 256 above
+// it for the wide path of the D 256 instance).
 template <class T, int D>
-int launch(const void* q, const void* k, const void* v, void* o, void* lse,
-           int BH, int Sq, int Sk, float scale, int causal, void* stream) {
+int launch(int width, const void* q, const void* k, const void* v, void* o,
+           void* lse, int BH, int Sq, int Sk, float scale, int causal,
+           void* stream) {
   if constexpr (std::is_same<T, bf16>::value && D <= 128)
     return launch_hopper<D>(q, k, v, o, lse, BH, Sq, Sk, scale, causal,
                             stream);
   else
     return launch_simple<T, D>(q, k, v, o, lse, BH, Sq, Sk, scale, causal,
-                               stream);
+                               width, stream);
 }
 
 }  // namespace flash

@@ -25,7 +25,6 @@ family.
 
 from __future__ import annotations
 
-import ctypes
 import math
 import os
 from typing import Tuple
@@ -34,8 +33,8 @@ import torch
 
 from horovod_tpu_torch import kernels
 from horovod_tpu_torch.ops.conv_bn_backward import (
-    _bwd_plain, _ptr, _stream, check_cuda_args, fold_rows, group_size,
-    group_sum, launch_bwd)
+    _bwd_plain, _ptr, _stream, check_cuda_args, entry, fold_rows,
+    fold_rows_cuda, group_size, group_sum, launch_bwd)
 
 CONV_BLOCK_ENV = "HOROVOD_CONV_BLOCK"
 
@@ -95,9 +94,7 @@ def conv1x1_fwd_fused(x: torch.Tensor, w: torch.Tensor
     ws = torch.empty((2, nmb, c), dtype=torch.float32, device=x.device)
     ssum = torch.empty((c,), dtype=torch.float32, device=x.device)
     ssq = torch.empty((c,), dtype=torch.float32, device=x.device)
-    fn = getattr(kernels.lib("conv1x1_fwd"), f"hvd_conv1x1_fwd_{suffix}")
-    fn.argtypes = [kernels.P] * 6 + [kernels.I] * 3 + [kernels.P]
-    fn.restype = ctypes.c_int
+    fn = entry("conv1x1_fwd", f"hvd_conv1x1_fwd_{suffix}", 6, 3)
     err = fn(*[_ptr(t) for t in (x, wt, y, ws, ssum, ssq)], m, cin, c,
              _stream(x))
     kernels.check(err, "conv1x1_fwd_fused")
@@ -124,16 +121,20 @@ def conv1x1_bn_act_bwd_fused(dz, y, x_in, w, scale, bias, mean, inv, dbeta,
     (M·world under sync-BN). Returns dx (M, Cin) in x_in.dtype and dW
     (Cin, C) f32."""
     m = dz.shape[0]
-    scale32 = scale.float()
-    g, a, b = fold_rows(scale32, inv, dbeta, dgamma, dmean, dvar,
-                        count if count is not None else m)
-    if relu:  # the mask reruns the forward's f32 epilogue
-        s_row, b_row = scale32, bias.float()
-    else:  # mask all-true: xhat·0 + 1 > 0 everywhere
-        s_row = torch.zeros_like(scale32)
-        b_row = torch.ones_like(scale32)
+    count = count if count is not None else m
     if dz.device.type == "cpu":
+        scale32 = scale.float()
+        g, a, b = fold_rows(scale32, inv, dbeta, dgamma, dmean, dvar, count)
+        if relu:  # the mask reruns the forward's f32 epilogue
+            s_row, b_row = scale32, bias.float()
+        else:  # mask all-true: xhat·0 + 1 > 0 everywhere
+            s_row = torch.zeros_like(scale32)
+            b_row = torch.ones_like(scale32)
         return _bwd_plain(dz, y, x_in, w, g, mean, inv, a, b, s_row, b_row)
+    # The same rows in one launch on the card.
+    g, a, b, s_row, b_row = fold_rows_cuda(
+        "conv1x1_bn_act_bwd", "hvd_conv1x1_bn_act_fold_rows", scale, bias,
+        inv, dbeta, dgamma, dmean, dvar, count, relu).unbind(0)
     rows = [r.float().contiguous() for r in (g, mean, inv, a, b, s_row,
                                              b_row)]
     out = launch_bwd("conv1x1_bn_act_bwd", "hvd_conv1x1_bn_act_bwd", dz, y,

@@ -10,19 +10,23 @@ scores, through three hand-written CUDA kernels (csrc/, sm_90a):
     delta = rowsum(do * o) - dlse from a pre-pass of the same launch;
   * kernel 6, `flash_bwd_dq` (csrc/flash_bwd_dq.cu; replaces
     `_bwd_dq_kernel`): dq.
-Each takes bf16 or f32 (tf32 products) at any head dim up to 256: the
-wrappers zero-pad dh to the next compile-time instance (32, 64, 128,
-256) and slice the results back, which is exact (`_pad_head`). In bf16
-at D 32–128, kernels 4 and 5 run on Hopper's wgmma with TMA-fed rings
-and P kept in registers; kernel 6, f32 and D 256 run the simple
-mma.sync versions.
+Each takes bf16 or f32 (tf32 products) at any head dim: the wrappers
+zero-pad dh to the next compile-time instance (32, 64, 128, 256) or,
+above 256, to the next multiple of 256, and slice the results back,
+which is exact (`_pad_head`). In bf16 at D 32–128, kernels 4 and 5 run
+on Hopper's wgmma with TMA-fed rings and P kept in registers; kernel 6,
+f32 and D 256 run the simple mma.sync versions. Above 256 the D 256
+instances take the wide path (csrc/flash_common.cuh): the scores run
+over the whole padded width, 256 columns at a time, and the outputs are
+cut into 256-wide windows, one block of each window recomputing the
+scores it needs; right, not fast.
 
 Beside each kernel: its plain PyTorch version (`_fwd_plain`,
 `_bwd_dkdv_plain`, `_bwd_dq_plain`: full f32 scores, the softmax, and the
 backward written out with the kernels' formulas), which a CPU tensor
 takes and the card checks compare against, and its launch counter
 (`.launches` on the wrapper). A CUDA tensor always launches the kernel,
-or raises KernelError, for instance for a head dim above 256.
+or raises KernelError.
 
 The route is chosen by shape, as in the JAX package: `flash_attention`
 sends a shape that `_auto_block` cannot tile to
@@ -44,6 +48,7 @@ from horovod_tpu_torch.parallel.ring_attention import (
 
 _NEG_INF = -1e30
 HEAD_DIMS = (32, 64, 128, 256)  # the kernels' compile-time instances
+WINDOW = 256  # output columns a block of the wide path writes
 _IS_F32 = {torch.bfloat16: 0, torch.float32: 1}
 
 
@@ -102,12 +107,15 @@ def _bwd_dq_plain(q, k, v, do, lse, delta, causal, scale):
 # --------------------------------------------------------------------------
 
 def _instance(dh: int) -> int:
-    """The smallest compile-time head dim that holds dh."""
+    """The head dim the kernels run dh at: the smallest compile-time
+    instance that holds it, or above 256 the next multiple of 256 (the
+    wide path of the D 256 instance)."""
+    if dh < 1:
+        raise KernelError(f"head dim {dh}: must be at least 1")
     for d in HEAD_DIMS:
         if dh <= d:
             return d
-    raise KernelError(f"head dim {dh} is above {HEAD_DIMS[-1]}, the "
-                      f"largest the kernels take")
+    return WINDOW * -(-dh // WINDOW)
 
 
 def _pad_head(t: torch.Tensor, D: int) -> torch.Tensor:
@@ -128,8 +136,8 @@ def _ptr(t: Optional[torch.Tensor]):
 
 def _cuda_args(what: str, mats, rows):
     """What the kernels read, after the checks: one CUDA device, bf16 or
-    f32 matrices of one dtype with a head dim of at most 256, contiguous
-    and zero-padded to their instance's head dim, 16-byte aligned (the
+    f32 matrices of one dtype, contiguous and zero-padded to their
+    instance's head dim, 16-byte aligned (the
     kernels load rows 16 bytes at a time), f32 contiguous rows. Returns
     (mats, rows, D)."""
     mats = list(mats)

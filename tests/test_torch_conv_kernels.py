@@ -247,3 +247,79 @@ def test_non_cpu_tensor_never_falls_back():
     row = torch.empty((16,), device="meta")
     with pytest.raises(KernelError):
         tcbb.conv1x1_bn_bwd_fused(dz, dz, x, w, row, row, row, row, row)
+
+
+# ---------------------------------------------------------------- instances
+
+def _resnet50_sites():
+    from horovod_tpu_torch.models import resnet
+    return sorted({(m, cin, c) for _, _, m, cin, c in
+                   resnet.fused_sites(50, 32, 224)})
+
+
+# Ragged M (and C) that still take the Hopper instances: TMA fills the
+# edges with zeros.
+RAGGED_HOPPER = [(6271, 256, 1024), (6271, 64, 200)]
+
+
+@pytest.mark.parametrize("m,cin,c", _resnet50_sites() + RAGGED_HOPPER)
+def test_resnet50_sites_take_the_hopper_instance_in_bf16(m, cin, c):
+    """Kernels 2 and 3 run every ResNet-50 site (batch 32) on the Hopper
+    instance in bf16, and on the simple (tf32) one in f32."""
+    assert tcbb.bwd_instance(m, cin, c, torch.bfloat16) == "hopper"
+    assert tcbb.bwd_instance(m, cin, c, torch.float32) == "simple"
+
+
+@pytest.mark.parametrize("m,cin,c", [(1001, 24, 50), (250, 16, 64),
+                                     (256, 32, 48), (4096, 100, 64),
+                                     (4096, 64, 1032), (4096, 2048, 64)])
+def test_other_shapes_take_the_simple_instance(m, cin, c):
+    """Cin or C below 64, not a multiple of 8 (TMA's stride rule) or
+    above 1024 (the staged rows) keep the simple mma.sync code."""
+    assert tcbb.bwd_instance(m, cin, c, torch.bfloat16) == "simple"
+
+
+@pytest.mark.parametrize("m,cin,c,want", [
+    (100352, 64, 64, (64, 64, 64)), (100352, 64, 256, (64, 64, 128)),
+    (25088, 128, 512, (128, 128, 128)), (100352, 200, 64, (256, 256, 64)),
+    (25088, 512, 128, (256, 256, 128)), (6272, 1024, 512, (128, 256, 128)),
+    (6272, 256, 1024, (128, 256, 128)), (1000, 64, 64, (64, 64, 64))])
+def test_hopper_tiles_are_the_smallest_that_hold_the_shape(m, cin, c, want):
+    """The smallest tiles that hold Cin and C, except that dx drops to
+    128-wide tiles where 256-wide ones leave fewer than two waves of
+    128-row jobs over the 132 SMs (the M 6272 sites)."""
+    assert tcbb.hopper_tiles(m, cin, c) == want
+
+
+@pytest.mark.parametrize("m,cin,c", _resnet50_sites() + RAGGED_HOPPER
+                         + [(64, 64, 64), (100, 1024, 1024)])
+def test_hopper_dw_plan_covers_m_in_a_fixed_order(m, cin, c):
+    """The Hopper dW split: block s of the clusters x 8 takes rows
+    [s·chunk, (s+1)·chunk) ∩ [0, M), summed in the order of s (within a
+    cluster through distributed shared memory, then over clusters by
+    colsum), so the chunks must tile M in order, in whole 64-row ring
+    steps, with no cluster left empty; and the f32 workspace for the
+    clusters' sums stays at most 16 tiles of 256 x 128 (2 MiB)."""
+    clusters, chunk = tcbb.hopper_dw_plan(m, cin, c)
+    assert tcbb.hopper_dw_plan(m, cin, c) == (clusters, chunk)
+    splits = clusters * tcbb.HOPPER_CLUSTER
+    assert chunk % 64 == 0 and chunk > 0
+    spans = [(s * chunk, min(m, (s + 1) * chunk)) for s in range(splits)]
+    rows = [r for b, e in spans for r in range(b, e)]
+    assert rows == list(range(m))
+    assert (clusters - 1) * tcbb.HOPPER_CLUSTER * chunk < m
+    _, ct, nt = tcbb.hopper_tiles(m, cin, c)
+    tiles = -(-cin // ct) * -(-c // nt)
+    assert clusters == 1 or tiles * clusters <= 16
+    ws = 0 if clusters == 1 else clusters * cin * c * 4  # launch_bwd's
+    assert ws <= 2 * 2 ** 20
+
+
+def test_hopper_workspace_is_far_below_the_simple_split():
+    """At (6272, 256, 1024) the simple dW pass writes 17 f32 partials of
+    dW (17.8 MB, read back by colsum: 35.7 MB); the Hopper plan writes
+    two cluster sums (2 MiB)."""
+    splits, _ = tcbb.dw_splits(6272, 256, 1024)
+    assert splits * 256 * 1024 * 4 > 17e6
+    clusters, _ = tcbb.hopper_dw_plan(6272, 256, 1024)
+    assert clusters * 256 * 1024 * 4 == 2 * 2 ** 20

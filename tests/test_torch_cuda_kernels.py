@@ -26,6 +26,11 @@ from horovod_tpu_torch.ops import flash_attention as fa
 pytestmark = pytest.mark.cuda
 
 SHAPES = [(256, 32, 48), (250, 16, 64), (1001, 24, 50), (4096, 256, 512)]
+# Kernels 2 and 3 also at two ResNet-50 site shapes, on their Hopper
+# instances in bf16 (Cin 1024 runs the 256-wide tiles and a two-cluster
+# dW; Cin 64 the 64-wide ones and 16 clusters) and on the simple ones in
+# f32; (4096, 256, 512) is Hopper in bf16 too, the first three simple.
+BWD_SHAPES = SHAPES + [(6272, 1024, 256), (100352, 64, 64)]
 
 
 @pytest.fixture
@@ -64,7 +69,7 @@ def test_fwd_kernel_matches_plain(dev, m, cin, c):
 
 
 @pytest.mark.parametrize("relu", [True, False])
-@pytest.mark.parametrize("m,cin,c", SHAPES)
+@pytest.mark.parametrize("m,cin,c", BWD_SHAPES)
 def test_bwd_kernels_match_plain(dev, m, cin, c, relu):
     x, w, scale, bias, dz = _inputs(m, cin, c, dev, seed=1)
     y, ssum, ssq = cb._fwd_plain(x, w)
@@ -86,6 +91,25 @@ def test_bwd_kernels_match_plain(dev, m, cin, c, relu):
                                             inv, db, dg, dmean, dvar)
         _close(dx3, dxr, 2.0 ** -7)
         _close(dw3, dwr, 1e-3)
+
+
+@pytest.mark.parametrize("m,cin,c", [(6272, 1024, 512), (6271, 64, 200)])
+def test_hopper_bwd_is_bitwise_repeatable(dev, m, cin, c):
+    """The Hopper instances sum in a fixed order (clusters through
+    distributed shared memory, then colsum): two launches on the same
+    inputs give the same bits."""
+    assert cbb.bwd_instance(m, cin, c, torch.bfloat16) == "hopper"
+    x, w, scale, bias, dz = _inputs(m, cin, c, dev, seed=4)
+    y, ssum, ssq = cb._fwd_plain(x, w)
+    mean = ssum / m
+    inv = torch.rsqrt(ssq / m - mean.square() + 1e-5)
+    db, dg = cb._bn_act_sums(dz, y, mean, inv, scale, bias, True)
+    runs = [cb.conv1x1_bn_act_bwd_fused(dz, y, x, w, scale, bias, mean, inv,
+                                        db, dg) for _ in range(2)]
+    runs += [cbb.conv1x1_bn_bwd_fused(dz, y, x, w, scale.float(), mean, inv,
+                                      db, dg) for _ in range(2)]
+    for a, b in ((runs[0], runs[1]), (runs[2], runs[3])):
+        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
 
 
 def test_block_op_grads_match_reference(dev):
@@ -234,7 +258,32 @@ def test_flash_attention_grads_on_the_card(dev):
         _close(b, a, 2.0 ** -5)
 
 
-def test_flash_refuses_a_head_dim_without_instance(dev):
-    q = torch.zeros((2, 64, 300), device=dev, dtype=torch.bfloat16)
-    with pytest.raises(KernelError, match="256"):
-        fa.flash_fwd(q, q, q, True, 0.1)
+@pytest.mark.parametrize("dtype,dh,causal,with_dlse", [
+    (torch.bfloat16, 320, True, False), (torch.bfloat16, 512, False, False),
+    (torch.float32, 320, True, True)])
+def test_flash_refuses_a_head_dim_without_instance(dev, dtype, dh, causal,
+                                                   with_dlse):
+    """No head dim lacks an instance now: above 256 the kernels take the
+    wide path (dh zero-padded to a multiple of 256, outputs in 256-wide
+    windows), and it matches the plain versions tile by tile."""
+    assert fa._instance(dh) == 512
+    g = torch.Generator(device=dev).manual_seed(dh)
+    bh, s = 2, 200
+    q, k, v, do = (torch.randn((bh, s, dh), generator=g, device=dev)
+                   .to(dtype) for _ in range(4))
+    dlse = (0.1 * torch.randn((bh, s), generator=g, device=dev)
+            if with_dlse else None)
+    sc = dh ** -0.5
+    tol = 2.0 ** -7 if dtype == torch.bfloat16 else 2.0 ** -9
+    o, lse = fa.flash_fwd(q, k, v, causal, sc)
+    o_r, lse_r = fa._fwd_plain(q, k, v, causal, sc)
+    _close_tiles(o, o_r, tol)
+    assert float((lse - lse_r).abs().max()) <= 2e-3
+    dk, dv, delta = fa.flash_bwd_dkdv(q, k, v, o, do, lse, dlse, causal, sc)
+    dk_r, dv_r, _ = fa._bwd_dkdv_plain(q, k, v, o, do, lse, dlse, causal,
+                                       sc)
+    _close_tiles(dk, dk_r, tol)
+    _close_tiles(dv, dv_r, tol)
+    dq = fa.flash_bwd_dq(q, k, v, do, lse, delta, causal, sc)
+    _close_tiles(dq, fa._bwd_dq_plain(q, k, v, do, lse, delta, causal, sc),
+                 tol)

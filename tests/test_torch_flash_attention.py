@@ -209,14 +209,23 @@ def test_non_cpu_tensor_never_falls_back():
 # ---------------------------------------------------------------- head dims
 
 @pytest.mark.parametrize("dh,D", [(16, 32), (32, 32), (48, 64), (80, 128),
-                                  (129, 256), (256, 256)])
+                                  (129, 256), (256, 256), (320, 512),
+                                  (512, 512)])
 def test_instance_is_the_next_head_dim_with_a_kernel(dh, D):
     assert tfa._instance(dh) == D
 
 
-def test_head_dim_above_256_is_refused():
-    with pytest.raises(KernelError, match="256"):
-        tfa._instance(257)
+@pytest.mark.parametrize("dh,D", [(257, 512), (320, 512), (600, 768),
+                                  (1024, 1024)])
+def test_head_dim_above_256_is_refused(dh, D):
+    """A head dim above 256 was refused (no instance); now the kernels
+    take it on the wide path: padded to the next multiple of 256 and
+    written in 256-wide windows, the D 256 instance being the case of
+    one window."""
+    assert tfa._instance(dh) == D
+    assert D % tfa.WINDOW == 0 and D // tfa.WINDOW == len(_windows(D)) > 1
+    with pytest.raises(KernelError):
+        tfa._instance(0)
 
 
 def _padded_route(q, k, v, causal):
@@ -253,6 +262,69 @@ def test_padded_head_dim_matches_jax(dh):
     want = jax.grad(jloss, argnums=(0, 1, 2))(*_j(q, k, v))
     flat = [torch.tensor(a.reshape(2, S, dh)) for a in (q, k, v)]
     o, grads = _padded_route(*flat, causal=True)
+    _close(np.asarray(want_o).reshape(2, S, dh), o, TOL_OUT)
+    for a, b in zip(want, grads):
+        _close(np.asarray(a).reshape(2, S, dh), b, TOL_GRAD)
+
+
+def _windows(D):
+    """The column windows of o, dq, dk and dv that the kernels' blocks
+    write at padded head dim D (csrc/flash_common.cuh): all of D up to
+    256, 256-wide slices above."""
+    if D <= tfa.WINDOW:
+        return [slice(0, D)]
+    return [slice(w, w + tfa.WINDOW) for w in range(0, D, tfa.WINDOW)]
+
+
+def _windowed_route(q, k, v, causal):
+    """What a CUDA tensor takes for a head dim above 256 (the wide path):
+    q, k, v zero-padded to `_instance(dh)`, a multiple of 256; the scores
+    over the whole padded width; each 256-wide window of o, dq, dk and dv
+    from the window of v, do, k or q it reads (as one block of each
+    window computes it), through the plain versions and their `_ds`; the
+    outputs sliced back. Returns (o, (dq, dk, dv)) for the loss
+    sum(sin(o)), at (BH, S, dh)."""
+    dh = q.shape[-1]
+    D, scale = tfa._instance(dh), dh ** -0.5
+    qp, kp, vp = (tfa._pad_head(t, D) for t in (q, k, v))
+    wins = _windows(D)
+    assert len(wins) > 1
+    parts = [tfa._fwd_plain(qp, kp, vp[..., w], causal, scale) for w in wins]
+    lse = parts[0][1]
+    for _, l_w in parts[1:]:
+        assert torch.equal(l_w, lse)  # every window, the same lse
+    o_p = torch.cat([o_w for o_w, _ in parts], -1)
+    o = o_p[..., :dh]
+    do_p = tfa._pad_head(torch.cos(o), D)
+    delta = tfa._delta(o_p, do_p, None)
+    p, ds = tfa._ds(qp, kp, vp, do_p, lse, delta, causal, scale)
+    pt, dst = p.transpose(-1, -2), ds.transpose(-1, -2)
+    dq = torch.cat([torch.matmul(ds, kp[..., w]) for w in wins], -1)
+    dk = torch.cat([torch.matmul(dst, qp[..., w]) for w in wins], -1)
+    dv = torch.cat([torch.matmul(pt, do_p[..., w]) for w in wins], -1)
+    return o, tuple(g[..., :dh] for g in (dq, dk, dv))
+
+
+@pytest.mark.parametrize("dh", [320, 512])
+def test_wide_head_dim_matches_jax(dh):
+    """The wide path (dh above 256: padded to a multiple of 256, scores
+    over the whole width, outputs in 256-wide windows) equals the JAX
+    kernel (interpret mode) at the true dh, forward and q, k, v
+    gradients, causal. Tolerance as for the padded head dims: 1e-5 of
+    the largest output, 2e-5 of the largest gradient (f32, sums in other
+    orders)."""
+    S = 64
+    q, k, v = _mk(*[(1, 2, S, dh)] * 3, seed=dh)
+
+    def jloss(q, k, v):
+        return jnp.sum(jnp.sin(jfa.flash_attention(
+            q, k, v, causal=True, block_q=64, block_k=64)))
+
+    want_o = jfa.flash_attention(*_j(q, k, v), causal=True, block_q=64,
+                                 block_k=64)
+    want = jax.grad(jloss, argnums=(0, 1, 2))(*_j(q, k, v))
+    flat = [torch.tensor(a.reshape(2, S, dh)) for a in (q, k, v)]
+    o, grads = _windowed_route(*flat, causal=True)
     _close(np.asarray(want_o).reshape(2, S, dh), o, TOL_OUT)
     for a, b in zip(want, grads):
         _close(np.asarray(a).reshape(2, S, dh), b, TOL_GRAD)
