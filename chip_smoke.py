@@ -7,17 +7,18 @@ Phases, each fatal on failure:
   1. build  — nvcc builds the six CUDA kernels from
      horovod_tpu_torch/csrc/, one process per source, in parallel; what
      ptxas says of registers and spills, and the HGMMA (wgmma) and
-     UTMALDG (TMA) instructions in each library's SASS, which kernels 2,
-     3, 4 and 5 must have;
+     UTMALDG (TMA) instructions in each library's SASS, which all six
+     must have (each has a Hopper instance);
   2. conv kernel checks — kernels 1–3 against their plain PyTorch
      versions on the card, in bf16 and in f32, at ResNet-50 site shapes
-     (batch 32) plus ragged M (on the Hopper instances of kernels 2 and
-     3, and on the simple ones) and a C that is no multiple of 16, each
-     line naming the instance of kernels 2 and 3 that ran (`hopper` or
-     `simple`); kernel 2's ReLU mask against the forward's z > 0 on an
-     input built to sit on the boundary, with bf16 and with f32 y; two
-     launches of each Hopper instance at (6272, 1024, 512) giving
-     bitwise-equal dx and dW; then each kernel, its plain version and a
+     (batch 32) plus ragged M (on the Hopper instances, and on the
+     simple ones) and a C that is no multiple of 16, each line naming
+     the instance that ran (`hopper` or `simple`); kernel 2's ReLU mask
+     against the forward's z > 0 on an input built to sit on the
+     boundary, with bf16 and with f32 y; two launches of each Hopper
+     instance of kernels 1–3 at (6272, 1024, 512) giving bitwise-equal
+     y, Σy, Σy², dx and dW, and two of kernel 6's at the LM's shape
+     giving the same dq; then each kernel, its plain version and a
      PyTorch yardstick timed at every fused site shape of a ResNet-50
      step, in both types, beside the card's bound (device time from the
      profiler's trace, `device_ms`; the wall time of back-to-back calls
@@ -27,12 +28,15 @@ Phases, each fatal on failure:
      a ragged S, dh 64, a non-causal chunk (Sq 512, Sk 1024) with an lse
      cotangent, f32, dh 32 with a ragged S, dh 80 (zero-padded to the
      128 instance), dh 200 (the 256 instance) in bf16 and f32, and dh
-     320 and 512 (the wide path, padded to 512) in bf16 and f32; then
-     each timed (device time) at the LM's shape beside its bound, its
-     plain version and scaled_dot_product_attention, and once more at
-     dh 512 (B·H 16, S 1024: the wide path);
+     320 and 512 (the wide path, padded to 512) in bf16 and f32, each
+     line naming the instance that ran; then each timed (device time)
+     at the LM's shape beside its bound, its plain version and
+     scaled_dot_product_attention (kernel 6 has no PyTorch call of its
+     own: kernels 5 + 6 are timed as a pair against SDPA's backward),
+     and once more at dh 512 (B·H 16, S 1024: the wide path);
   4. ResNet main path — hvd.init(), ResNet-50 at full width (224², bf16,
-     batch 32) with HOROVOD_CONV_BLOCK=1, broadcast_parameters,
+     batch 32) with HOROVOD_CONV_BLOCK=1 (every site on the Hopper
+     instances of kernels 1 and 2), broadcast_parameters,
      DistributedOptimizer(SGD momentum 0.9) with the bucketed NCCL
      all-reduce: 2 warm-up and 5 timed steps, the launch counters read
      around them; then one step from the same weights on the unfused
@@ -42,7 +46,8 @@ Phases, each fatal on failure:
   5. LM main path — the transformer LM at the bench's flagship width
      (L12 D2048 F8192 H16 S1024 B12 V32768, bf16, Adam) through
      horovod_tpu_torch.transformer_lm with attn="flash": 2 warm-up and
-     5 timed steps, 12 launches of each flash kernel per step; then one
+     5 timed steps, 12 launches of each flash kernel per step, all on
+     the Hopper instances (bf16, dh 128); then one
      step from the same weights with attn="local", whose loss must match.
 Then the `kernels` JSON line, the card's name and power limit, and last
 {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
@@ -280,10 +285,13 @@ def check_outputs(name, got, ref):
                          f" dW {e2:.3g} (max {float(dwr.abs().max()):.3g})")
 
 
-def instance(m, cin, c, dtype) -> str:
-    """The instance of kernels 2 and 3 that runs this shape."""
+def instance(m, cin, c, dtype, kernel="act_bwd") -> str:
+    """The instance of kernel 1 ("fwd") or kernels 2 and 3 that runs this
+    shape."""
+    from horovod_tpu_torch.ops import conv_block as cb
     from horovod_tpu_torch.ops import conv_bn_backward as cbb
-    return cbb.bwd_instance(m, cin, c, dtype)
+    pick = cb.fwd_instance if kernel == "fwd" else cbb.bwd_instance
+    return pick(m, cin, c, dtype)
 
 
 def check_kernels(dev, dtype):
@@ -294,7 +302,6 @@ def check_kernels(dev, dtype):
     worst = {"fwd": 0.0, "act_bwd": 0.0, "bn_bwd": 0.0}
     tag = str(dtype).replace("torch.", "")
     for i, (m, cin, c) in enumerate(CHECK_SHAPES):
-        inst = instance(m, cin, c, dtype)
         s = site_inputs(m, cin, c, dev, seed=i, dtype=dtype)
         for name, run, plain in (("fwd", run_k1, plain_k1),
                                  ("act_bwd", run_k2, plain_k2),
@@ -307,9 +314,8 @@ def check_kernels(dev, dtype):
                      f"{name} at {(m, cin, c)}: non-finite output")
             err, msg = check_outputs(name, got, ref)
             worst[name] = max(worst[name], err)
-            label = "" if name == "fwd" else f" [{inst}]"
             print(f"check {name:8s} {tag} M={m:6d} Cin={cin:4d} C={c:4d}"
-                  f"{label}: {msg}")
+                  f" [{instance(m, cin, c, dtype, name)}]: {msg}")
         del s
     mask_check(dev, dtype)
     return worst
@@ -353,24 +359,43 @@ def mask_check(dev, dtype, m=25088, c=256):
     return equal, m * c, on_boundary
 
 
-def repeat_check(dev, shape=REPEAT_SHAPE):
-    """Two launches of each Hopper instance (kernels 2 and 3, bf16) on the
-    same inputs give bitwise-equal dx and dW: every sum runs in a fixed
+def repeat_check(dev, shape=REPEAT_SHAPE, flash_shape=(192, 1024, 128)):
+    """Two launches of each Hopper instance (kernels 1, 2 and 3 at
+    `shape`, kernel 6 at the LM's per-layer shape; bf16) on the same
+    inputs give bitwise-equal outputs: every sum runs in a fixed
     order."""
     import torch
+    from horovod_tpu_torch.ops import flash_attention as fa
     m, cin, c = shape
-    need(instance(m, cin, c, torch.bfloat16) == "hopper",
-         f"{shape} does not take the Hopper instances")
     s = site_inputs(m, cin, c, dev, seed=7)
     out = {}
-    for name, run in (("act_bwd", run_k2), ("bn_bwd", run_k3)):
-        (dx1, dw1), (dx2, dw2) = run(s), run(s)
+    for name, run in (("fwd", run_k1), ("act_bwd", run_k2),
+                      ("bn_bwd", run_k3)):
+        need(instance(m, cin, c, torch.bfloat16, name) == "hopper",
+             f"{shape} does not take kernel {name}'s Hopper instance")
+        a, b = run(s), run(s)
         torch.cuda.synchronize()
-        same = bool(torch.equal(dx1, dx2)) and bool(torch.equal(dw1, dw2))
+        same = all(bool(torch.equal(u, v)) for u, v in zip(a, b))
         out[name] = same
         print(f"check repeat {name} bf16 M={m} Cin={cin} C={c} [hopper]: "
               f"two launches bitwise equal: {same}")
         need(same, f"{name}: two launches of the Hopper instance differ")
+    del s
+    bh, sq, dh = flash_shape
+    need(fa.flash_instance(torch.bfloat16, dh) == "hopper",
+         "the LM's head dim does not take kernel 6's Hopper instance")
+    x = flash_inputs(bh, sq, sq, dh, True, "bfloat16", False, dev, 9)
+    q, k, v, do, sc = x["q"], x["k"], x["v"], x["do"], x["scale"]
+    o, lse = fa.flash_fwd(q, k, v, True, sc)
+    _, _, delta = fa.flash_bwd_dkdv(q, k, v, o, do, lse, None, True, sc)
+    a = fa.flash_bwd_dq(q, k, v, do, lse, delta, True, sc)
+    b = fa.flash_bwd_dq(q, k, v, do, lse, delta, True, sc)
+    torch.cuda.synchronize()
+    out["attn_dq"] = bool(torch.equal(a, b))
+    print(f"check repeat attn_dq bf16 BH={bh} S={sq} dh={dh} causal "
+          f"[hopper]: two launches bitwise equal: {out['attn_dq']}")
+    need(out["attn_dq"], "attn_dq: two launches of the Hopper instance "
+         "differ")
     return out
 
 
@@ -409,11 +434,12 @@ def time_kernels(dev, dtype):
             for key, v in t.items():
                 agg[name][key] += v * count
             detail.append(dict(kernel=name, dtype=str(dtype), M=m, Cin=cin,
-                               C=c, count=count, **t))
-            label = ("" if name == "fwd"
-                     else f" [{instance(m, cin, c, dtype)}]")
+                               C=c, count=count,
+                               instance=instance(m, cin, c, dtype, name),
+                               **t))
             print(f"time {name:8s} {dtype.itemsize * 8}b M={m:6d} "
-                  f"Cin={cin:4d} C={c:4d} x{count}{label}: "
+                  f"Cin={cin:4d} C={c:4d} x{count} "
+                  f"[{instance(m, cin, c, dtype, name)}]: "
                   f"kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f}, "
                   f"library {t['library_ms']:.4f}, bound {b:.4f} "
                   f"({'bytes' if tb >= tf else 'operations'}); "
@@ -534,8 +560,10 @@ def check_flash(dev):
                                  rec["delta"])
         worst["attn_dq"] = max(worst["attn_dq"], rec["dq"])
         records.append(rec)
+        rec["instance"] = fa.flash_instance(getattr(torch, dtype), dh)
         print(f"check flash {label:22s} {dtype} BH={bh} Sq={sq} Sk={sk} "
-              f"dh={dh}: max|Δ| (worst tile ratio) " + ", ".join(
+              f"dh={dh} [{rec['instance']}]: max|Δ| (worst tile ratio) "
+              + ", ".join(
                   f"{n} {rec[n]:.3g}" + (f" ({rec[n + '_tile']:.3g})"
                                          if n != "lse" else "")
                   for n in ("o", "lse", "dk", "dv", "dq", "delta")))
@@ -567,7 +595,9 @@ def time_flash(dev, bh=192, s=1024, dh=128, heads=16):
     """Kernels 4–6, their plain versions and
     torch.nn.functional.scaled_dot_product_attention (forward for kernel
     4; its autograd backward, which makes dq, dk and dv in one call, on
-    kernel 5's line) at the LM's per-layer shape, causal, bf16."""
+    kernel 5's line) at the LM's per-layer shape, causal, bf16. No
+    PyTorch call computes dq alone, so kernels 5 + 6 are also timed as
+    the pair ("attn_bwd") that SDPA's backward computes."""
     import torch
     import torch.nn.functional as F
     from horovod_tpu_torch.ops import flash_attention as fa
@@ -603,17 +633,28 @@ def time_flash(dev, bh=192, s=1024, dh=128, heads=16):
         out[name] = t
         lib_s = ("n/a (in kernel 5's line)" if lib is None
                  else f"{t['library_ms']:.4f}")
-        print(f"time {name:9s} BH={bh} S={s} dh={dh} causal bf16: kernel "
+        print(f"time {name:9s} BH={bh} S={s} dh={dh} causal bf16 "
+              f"[{fa.flash_instance(torch.bfloat16, dh)}]: kernel "
               f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f}, library "
               f"{lib_s}, bound {b:.4f} "
               f"({'bytes' if tb >= tf else 'operations'})")
+    pair = {"ms": device_ms(lambda: (runs["attn_dkdv"][0](),
+                                     runs["attn_dq"][0]())),
+            "library_ms": out["attn_dkdv"]["library_ms"],
+            "bound_ms": sum(flash_bound(k, bh, s, s, dh, True, 2)[0]
+                            for k in ("attn_dkdv", "attn_dq"))}
+    print(f"time attn_bwd  BH={bh} S={s} dh={dh} causal bf16: kernels 5 + 6 "
+          f"{pair['ms']:.4f} ms, SDPA backward {pair['library_ms']:.4f} "
+          f"({pair['ms'] / pair['library_ms']:.2f}x), bound "
+          f"{pair['bound_ms']:.4f}")
+    out["attn_bwd_pair"] = pair
     return out
 
 
 def sass_counts():
     """Per library, the HGMMA (wgmma) and UTMALDG (TMA load) instructions
-    in its SASS, read with the toolkit's cuobjdump: kernels 2, 3, 4 and 5
-    must have both. None where the toolkit has no cuobjdump."""
+    in its SASS, read with the toolkit's cuobjdump: all six kernels must
+    have both. None where the toolkit has no cuobjdump."""
     from horovod_tpu_torch import kernels
     tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
                         "bin", "cuobjdump")
@@ -630,8 +671,7 @@ def sass_counts():
                      for op in ("HGMMA", "UTMALDG")}
         print(f"sass {name}: {out[name]['HGMMA']} HGMMA, "
               f"{out[name]['UTMALDG']} UTMALDG")
-    for name in ("conv1x1_bn_act_bwd", "conv1x1_bn_bwd", "flash_fwd",
-                 "flash_bwd_dkdv"):
+    for name in kernels.SOURCES:
         need(out[name]["HGMMA"] > 0 and out[name]["UTMALDG"] > 0,
              f"{name}: no wgmma or TMA load in its SASS")
     return out
@@ -686,8 +726,15 @@ def main_path(batch=32, image=224, depth=50, warmup=2, timed=5):
     import horovod_tpu_torch as hvd
     from horovod_tpu_torch import synthetic_benchmark as sb
 
+    from horovod_tpu_torch.models import resnet
     os.environ["HOROVOD_CONV_BLOCK"] = "1"
     os.environ["HOROVOD_FUSE_CONV_BN"] = "0"
+    sites = resnet.fused_sites(depth, batch, image)
+    for kernel in ("fwd", "act_bwd"):
+        insts = {instance(m, cin, c, torch.bfloat16, kernel)
+                 for _, _, m, cin, c in sites}
+        need(insts == {"hopper"}, f"kernel {kernel}: the ResNet-{depth} "
+             f"sites take {insts}, not only the Hopper instance")
     dev = hvd.device()
     model = sb.build(f"resnet{depth}", torch.bfloat16, dev)
     opt = sb.make_optimizer(model)
@@ -795,9 +842,14 @@ def lm_path(warmup=2, timed=5):
     from horovod_tpu_torch import transformer_lm as lm
     from horovod_tpu_torch.models import transformer as tfm
 
+    from horovod_tpu_torch.ops import flash_attention as fa
     cfg = tfm.TransformerConfig(**lm.FLAGSHIP, attn="flash",
                                 dtype=torch.bfloat16)
     batch, seq = lm.FLAGSHIP_BATCH, cfg.max_seq
+    dh = cfg.d_model // cfg.n_heads
+    need(fa.flash_instance(torch.bfloat16, dh) == "hopper",
+         f"the LM's head dim {dh} does not take the flash kernels' Hopper "
+         f"instances")
     dev = hvd.device()
     model, opt = lm.build(cfg, dev)
     data = lm.make_batch(batch, seq, cfg.vocab, dev, seed=hvd.rank())
@@ -932,6 +984,7 @@ def main() -> int:
     with open("chiprun_out/chip_smoke.json", "w") as f:
         json.dump({"build_s": build_s, "sass": sass, "repeat": repeat,
                    "flash_wide_dh512": wide,
+                   "attn_bwd_pair": agg["attn_bwd_pair"],
                    "kernels": line["kernels"],
                    "sites": detail + detail32, "conv_f32": agg32,
                    "conv_f32_max_abs_err": errs32,

@@ -11,7 +11,8 @@ fused site of a ResNet-50 step at batch 32), `chip_smoke.time_flash` at
 the LM's per-layer shape, then `chip_smoke.lm_path` (the flagship LM, 2
 warm-up and 5 timed steps). Prints one line per run, `AB <side>
 {json}`, with kernels 1–3's ms a step (summed over the 28 sites) and at
-each site, the flash kernels' ms a launch, scaled_dot_product_attention's
+each site, the flash kernels' ms a launch (and kernels 5 + 6 as one pair, where
+that checkout's chip_smoke times it), scaled_dot_product_attention's
 forward and backward ms, ms/step and tokens/s. Two versions are compared
 only inside one such call.
 """
@@ -50,7 +51,9 @@ print("AB", sys.argv[1], json.dumps({
                       for d in sites],
     "fwd": t["attn_fwd"]["ms"], "dkdv": t["attn_dkdv"]["ms"],
     "dq": t["attn_dq"]["ms"], "sdpa_fwd": t["attn_fwd"]["library_ms"],
-    "sdpa_bwd": t["attn_dkdv"]["library_ms"], "step_ms": lm["step_ms"],
+    "sdpa_bwd": t["attn_dkdv"]["library_ms"],
+    "dkdv_dq": t.get("attn_bwd_pair", {}).get("ms"),
+    "step_ms": lm["step_ms"],
     "tokens_per_s": lm["tokens_per_s"]}), flush=True)
 """
 

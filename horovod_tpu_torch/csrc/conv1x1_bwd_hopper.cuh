@@ -114,22 +114,8 @@ __device__ __forceinline__ float2 unpack(uint32_t v) {
   return __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&v));
 }
 
-// Byte offset of (row, 16-byte chunk) in a box written by TMA with the
-// 128-byte swizzle (the box starts on a 1024-byte boundary).
-__device__ __forceinline__ int swz(int row, int chunk) {
-  return row * 128 + ((chunk ^ (row & 7)) << 4);
-}
-
-inline int sm_count() {
-  static int n = 0;
-  if (!n) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-    if (n <= 0) n = 132;
-  }
-  return n;
-}
+using hop::sm_count;
+using hop::swz;
 
 // Ring depth that fits beside `fixed` bytes; 0 when two stages do not.
 inline int stages(int stage_bytes, int fixed) {

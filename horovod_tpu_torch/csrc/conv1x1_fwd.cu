@@ -1,20 +1,33 @@
 // Kernel 1: y = x . w with the BatchNorm stat sums fused into the pass.
 //
 // Replaces the Pallas TPU kernel horovod_tpu/ops/conv_block.py
-// conv1x1_fwd_fused -> _fwd_kernel. Inputs x [M][Cin] and w^T [C][Cin]
-// (the wrapper passes w transposed so both operands load along K), both
-// bf16 or both f32 (tf32 products). Outputs y [M][C] in the input type
-// and the per-channel f32 sum and sum of squares of the STORED y.
+// conv1x1_fwd_fused -> _fwd_kernel. Inputs x [M][Cin] and w [Cin][C],
+// both bf16 or both f32 (tf32 products). Outputs y [M][C] in the input
+// type and the per-channel f32 sum and sum of squares of the STORED y.
 //
 // On the H100 the kernel is bound by bytes at most ResNet-50 sites: it
 // does Cin*C/(Cin+C) operations per byte moved (51 at Cin=64, C=256; 341
 // at Cin=1024, C=512), against the ~295 at which bf16 tensor cores become
 // the limit. So it reads x and w and writes y once, and the stat sums
-// never re-read y. The TPU kernel carried the sums in one resident
-// accumulator across a sequential grid; here blocks run in parallel, so
-// each 128-row block writes its partial sums to an f32 workspace and a
-// second, fixed-order pass adds them up: no float atomics, the same
+// never re-read y from device memory. The TPU kernel carried the sums in
+// one resident accumulator across a sequential grid; here blocks run in
+// parallel, so each block writes its partial sums to an f32 workspace and
+// a second, fixed-order pass adds them up: no float atomics, the same
 // result on every run.
+//
+// Two instances, chosen by ops/conv_block.py `fwd_instance` from shape
+// and dtype alone:
+//   hvd_conv1x1_fwd_hopper: bf16 with Cin, C multiples of 8 in [64,
+//     1024] (every ResNet-50 site): TMA rings, wgmma with w read in
+//     place, y staged in shared memory and written by TMA stores, one
+//     column-sum launch (conv1x1_fwd_hopper.cuh, whose note gives the
+//     design);
+//   hvd_conv1x1_fwd_bf16 / _f32: `fwd_kernel` below, the simple version
+//     (mma.sync through conv1x1_gemm.cuh's register-staged loads, a 128
+//     x 128 tile, y stored element by element, two column-sum launches)
+//     on w^T [C][Cin], which the wrapper transposes so both operands load
+//     along K. f32 stays here: tf32 wgmma takes K-major operands only.
+#include "conv1x1_fwd_hopper.cuh"
 #include "conv1x1_gemm.cuh"
 
 namespace hvd {
@@ -116,3 +129,26 @@ int launch_fwd(const void* x, const void* wt, void* y, void* ws, void* sum,
   }
 HVD_FWD(bf16, hvd::bf16)
 HVD_FWD(f32, float)
+
+// x [M][Cin], w [Cin][C] bf16; stats [2][C] f32 (sum, then sumsq); ws
+// holds ceil(M / 128) * 2 * C floats; bn is the job width `fwd_tile`
+// chose (64, 128 or 256). Returns cudaGetLastError().
+extern "C" int hvd_conv1x1_fwd_hopper(const void* x, const void* w, void* y,
+                                      void* ws, void* stats, int M, int Cin,
+                                      int C, int bn, void* stream) {
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  const hvd::bf16* xb = static_cast<const hvd::bf16*>(x);
+  const hvd::bf16* wb = static_cast<const hvd::bf16*>(w);
+  hvd::bf16* yb = static_cast<hvd::bf16*>(y);
+  float* wsf = static_cast<float*>(ws);
+  float* sf = static_cast<float*>(stats);
+  if (bn == 64)
+    return hvd::cfh::launch_fwd_hopper<64>(xb, wb, yb, wsf, sf, M, Cin, C, st);
+  if (bn == 128)
+    return hvd::cfh::launch_fwd_hopper<128>(xb, wb, yb, wsf, sf, M, Cin, C,
+                                            st);
+  if (bn == 256)
+    return hvd::cfh::launch_fwd_hopper<256>(xb, wb, yb, wsf, sf, M, Cin, C,
+                                            st);
+  return (int)cudaErrorInvalidValue;
+}

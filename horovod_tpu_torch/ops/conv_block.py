@@ -5,7 +5,9 @@ horovod_tpu/ops/conv_block.py).
 (`relu=False` drops the activation), through two hand-written kernels:
   * kernel 1, `conv1x1_fwd_fused` (csrc/conv1x1_fwd.cu; replaces the
     Pallas conv_block.py `_fwd_kernel`): y = x @ w and, in the same
-    pass, the per-channel f32 Σy and Σy² of the stored (rounded) y;
+    pass, the per-channel f32 Σy and Σy² of the stored (rounded) y; in
+    bf16 at the shapes `fwd_instance` names (every ResNet-50 site) its
+    Hopper instance (csrc/conv1x1_fwd_hopper.cuh), else the simple one;
   * kernel 2, `conv1x1_bn_act_bwd_fused` (csrc/conv1x1_bn_act_bwd.cu;
     replaces conv_block.py `_bwd_kernel`): the ReLU mask recomputed from
     y and the stats, the BN backward and both products, dy never stored.
@@ -32,8 +34,9 @@ from typing import Tuple
 import torch
 
 from horovod_tpu_torch import kernels
+from horovod_tpu_torch.common.exceptions import KernelError
 from horovod_tpu_torch.ops.conv_bn_backward import (
-    _bwd_plain, _ptr, _stream, check_cuda_args, entry, fold_rows,
+    _SM_COUNT, _bwd_plain, _ptr, _stream, check_cuda_args, entry, fold_rows,
     fold_rows_cuda, group_size, group_sum, launch_bwd)
 
 CONV_BLOCK_ENV = "HOROVOD_CONV_BLOCK"
@@ -75,6 +78,39 @@ def _fwd_plain(x, w):
     return y, ys.sum(0), ys.square().sum(0)
 
 
+def fwd_instance(m: int, cin: int, c: int, dtype: torch.dtype) -> str:
+    """Which instance of kernel 1 runs (m, cin, c) in `dtype`: "hopper"
+    (TMA rings, wgmma with w read in place, TMA stores of y) for bf16
+    with Cin and C multiples of 8 (TMA's 16-byte stride rule) between 64
+    and 1024, which every ResNet-50 site is; else "simple" (mma.sync on
+    a transposed copy of w): f32, whose tf32 wgmma needs K-major
+    operands where w is MN-major, and every other shape. A function of
+    shape and dtype alone: a launch or build that fails raises, it never
+    picks the other instance."""
+    del m  # any M: TMA fills the ragged row edge with zeros
+    if (dtype == torch.bfloat16 and cin % 8 == 0 and c % 8 == 0
+            and 64 <= cin <= 1024 and 64 <= c <= 1024):
+        return "hopper"
+    return "simple"
+
+
+FWD_ROWS = 128  # rows of a Hopper job (two warpgroups of 64)
+
+
+def fwd_tile(m: int, cin: int, c: int) -> int:
+    """The column width BN of a Hopper job of kernel 1 (its wgmma N):
+    the smallest of 64, 128, 256 that holds C (256 above), so that x is
+    read once for C <= 256; halved while the jobs (128-row tiles x column
+    tiles) would not give every SM one (the M 6272 sites): idle SMs cost
+    more there than re-reading x from L2."""
+    del cin
+    bn = 64 if c <= 64 else 128 if c <= 128 else 256
+    while (bn > 64
+           and math.ceil(m / FWD_ROWS) * math.ceil(c / bn) < _SM_COUNT):
+        bn //= 2
+    return bn
+
+
 def conv1x1_fwd_fused(x: torch.Tensor, w: torch.Tensor
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """y = x @ w plus the per-channel (sum, sumsq) f32 rows of the stored
@@ -82,14 +118,29 @@ def conv1x1_fwd_fused(x: torch.Tensor, w: torch.Tensor
     sum (C,) f32, sumsq (C,) f32)."""
     if x.device.type == "cpu":
         return _fwd_plain(x, w)
-    wt = w.t().contiguous()  # (C, Cin): both operands load along Cin
-    suffix = check_cuda_args("conv1x1_fwd_fused", (x, wt), ())
     m, cin = x.shape
     c = w.shape[1]
     if w.shape[0] != cin:
         raise ValueError(f"conv1x1_fwd_fused: x {tuple(x.shape)} and "
                          f"w {tuple(w.shape)} disagree")
-    nmb = math.ceil(m / 128)
+    nmb = math.ceil(m / FWD_ROWS)
+    if fwd_instance(m, cin, c, x.dtype) == "hopper":
+        w = w.contiguous()  # read in place: no copy for a (Cin, C) weight
+        check_cuda_args("conv1x1_fwd_fused", (x, w), ())
+        if x.data_ptr() % 16 or w.data_ptr() % 16:
+            raise KernelError("conv1x1_fwd_fused: the TMA loads need x and "
+                              "w on 16-byte boundaries")
+        y = torch.empty((m, c), dtype=x.dtype, device=x.device)
+        ws = torch.empty((nmb, 2, c), dtype=torch.float32, device=x.device)
+        stats = torch.empty((2, c), dtype=torch.float32, device=x.device)
+        fn = entry("conv1x1_fwd", "hvd_conv1x1_fwd_hopper", 5, 4)
+        err = fn(*[_ptr(t) for t in (x, w, y, ws, stats)], m, cin, c,
+                 fwd_tile(m, cin, c), _stream(x))
+        kernels.check(err, "conv1x1_fwd_fused")
+        conv1x1_fwd_fused.launches += 1
+        return y, stats[0], stats[1]
+    wt = w.t().contiguous()  # (C, Cin): both operands load along Cin
+    suffix = check_cuda_args("conv1x1_fwd_fused", (x, wt), ())
     y = torch.empty((m, c), dtype=x.dtype, device=x.device)
     ws = torch.empty((2, nmb, c), dtype=torch.float32, device=x.device)
     ssum = torch.empty((c,), dtype=torch.float32, device=x.device)

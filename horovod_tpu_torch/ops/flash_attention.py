@@ -13,9 +13,10 @@ scores, through three hand-written CUDA kernels (csrc/, sm_90a):
 Each takes bf16 or f32 (tf32 products) at any head dim: the wrappers
 zero-pad dh to the next compile-time instance (32, 64, 128, 256) or,
 above 256, to the next multiple of 256, and slice the results back,
-which is exact (`_pad_head`). In bf16 at D 32–128, kernels 4 and 5 run
-on Hopper's wgmma with TMA-fed rings and P kept in registers; kernel 6,
-f32 and D 256 run the simple mma.sync versions. Above 256 the D 256
+which is exact (`_pad_head`). In bf16 at D 32–128 (`flash_instance`),
+kernels 4, 5 and 6 run on Hopper's wgmma with TMA-fed rings and the
+score tiles (P, dS) kept in registers; f32 and D 256 run the simple
+mma.sync versions. Above 256 the D 256
 instances take the wide path (csrc/flash_common.cuh): the scores run
 over the whole padded width, 256 columns at a time, and the outputs are
 cut into 256-wide windows, one block of each window recomputing the
@@ -116,6 +117,19 @@ def _instance(dh: int) -> int:
         if dh <= d:
             return d
     return WINDOW * -(-dh // WINDOW)
+
+
+def flash_instance(dtype: torch.dtype, dh: int) -> str:
+    """Which instance of kernels 4, 5 and 6 runs head dim dh in `dtype`:
+    "hopper" (wgmma, TMA rings, scores kept in registers) for bf16 at an
+    instance D of 32, 64 or 128, the LM's path and every dh up to 128;
+    else "simple" (mma.sync): f32, whose tf32 wgmma takes K-major
+    operands only, and D 256 and the wide path above it. A function of
+    dtype and D alone, as the sources' dispatch is: a launch or build
+    that fails raises, it never picks the other instance."""
+    if dtype == torch.bfloat16 and _instance(dh) <= 128:
+        return "hopper"
+    return "simple"
 
 
 def _pad_head(t: torch.Tensor, D: int) -> torch.Tensor:

@@ -323,3 +323,51 @@ def test_hopper_workspace_is_far_below_the_simple_split():
     assert splits * 256 * 1024 * 4 > 17e6
     clusters, _ = tcbb.hopper_dw_plan(6272, 256, 1024)
     assert clusters * 256 * 1024 * 4 == 2 * 2 ** 20
+
+
+# ---------------------------------------------------------------- kernel 1
+
+@pytest.mark.parametrize("m,cin,c", _resnet50_sites() + RAGGED_HOPPER)
+def test_resnet50_sites_take_the_hopper_fwd_instance_in_bf16(m, cin, c):
+    """Kernel 1 runs every ResNet-50 site (batch 32) on its Hopper
+    instance in bf16, and on the simple (tf32) one in f32."""
+    assert tcb.fwd_instance(m, cin, c, torch.bfloat16) == "hopper"
+    assert tcb.fwd_instance(m, cin, c, torch.float32) == "simple"
+
+
+@pytest.mark.parametrize("m,cin,c", [(1001, 24, 50), (250, 16, 64),
+                                     (256, 32, 48), (4096, 100, 64),
+                                     (4096, 64, 1032), (4096, 2048, 64)])
+def test_other_shapes_take_the_simple_fwd_instance(m, cin, c):
+    """Cin or C below 64, not a multiple of 8 or above 1024 keep kernel
+    1's simple mma.sync code, as for kernels 2 and 3."""
+    assert tcb.fwd_instance(m, cin, c, torch.bfloat16) == "simple"
+
+
+@pytest.mark.parametrize("m,cin,c", _resnet50_sites() + RAGGED_HOPPER
+                         + [(6271, 64, 200), (1000, 64, 64),
+                            (100, 1024, 1024)])
+def test_fwd_tile_covers_c_and_fills_the_sms(m, cin, c):
+    """Kernel 1's Hopper jobs: a column width the kernel has (64, 128,
+    256) whose tiles cover C exactly (the last one holds the edge); at
+    every ResNet-50 site at least one job an SM (132), which the M 6272
+    sites reach by narrower tiles; and never narrower than needed."""
+    bn = tcb.fwd_tile(m, cin, c)
+    assert bn in (64, 128, 256)
+    n_ct = -(-c // bn)
+    assert (n_ct - 1) * bn < c <= n_ct * bn
+    jobs = -(-m // tcb.FWD_ROWS) * n_ct
+    if (m, cin, c) in _resnet50_sites():
+        assert jobs >= 132
+    if bn < 256 and bn < c:  # halved: the wider tile left SMs idle
+        assert -(-m // tcb.FWD_ROWS) * -(-c // (2 * bn)) < 132
+
+
+def test_m6272_sites_get_a_wave_of_jobs():
+    """The three M 6272 shapes: 128 x 256 tiles would give 49, 49 and 98
+    jobs for the 132 SMs; the planner's widths give 196 each."""
+    for cin, c, want in ((256, 1024, 256), (1024, 256, 64),
+                         (1024, 512, 128)):
+        bn = tcb.fwd_tile(6272, cin, c)
+        assert bn == want
+        assert 49 * -(-c // bn) == 196

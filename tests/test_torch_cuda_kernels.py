@@ -13,6 +13,12 @@ inputs (tf32 products) within 2^-9; the flash kernels' outputs tile by
 tile (each 64-row tile within 2^-7 (bf16) or 2^-9 (f32) of the
 reference tile's norm), lse within 2e-3, delta within 2e-5 of the size
 of its terms.
+
+Kernels 1 and 6 also on their Hopper instances at the shapes the main
+paths give them: kernel 1 at every ResNet-50 site (batch 32) and a
+ragged M, kernel 6 at dh 32, 64, 80 (padded) and 128, causal and not,
+Sq != Sk, ragged Sq, with an lse cotangent; two launches of each give
+the same bits.
 """
 
 import pytest
@@ -20,6 +26,7 @@ import torch
 
 from horovod_tpu_torch.ops import conv_block as cb
 from horovod_tpu_torch.common.exceptions import KernelError
+from horovod_tpu_torch.models import resnet
 from horovod_tpu_torch.ops import conv_bn_backward as cbb
 from horovod_tpu_torch.ops import flash_attention as fa
 
@@ -287,3 +294,97 @@ def test_flash_refuses_a_head_dim_without_instance(dev, dtype, dh, causal,
     dq = fa.flash_bwd_dq(q, k, v, do, lse, delta, causal, sc)
     _close_tiles(dq, fa._bwd_dq_plain(q, k, v, do, lse, delta, causal, sc),
                  tol)
+
+
+# ---------------------------------------------------------------- Hopper
+# instances of kernels 1 and 6
+
+RESNET50_SITES = sorted({(m, cin, c) for _, _, m, cin, c in
+                         resnet.fused_sites(50, 32, 224)})
+
+
+def _fwd_site(m, cin, c, dev, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((m, cin), generator=g, device=dev).to(torch.bfloat16)
+    w = (torch.randn((cin, c), generator=g, device=dev)
+         * cin ** -0.5).to(torch.bfloat16)
+    return x, w
+
+
+@pytest.mark.parametrize("m,cin,c", RESNET50_SITES + [(6271, 256, 1024),
+                                                      (6271, 64, 200)])
+def test_fwd_hopper_matches_plain(dev, m, cin, c):
+    """Kernel 1's Hopper instance: y within one bf16 step (2^-7) of the
+    largest value, Σy within 1e-3 of Σ|y| and Σy² within 1e-3 relative,
+    per channel (chip_smoke's TOL_BF16 and TOL_SUMS)."""
+    assert cb.fwd_instance(m, cin, c, torch.bfloat16) == "hopper"
+    x, w = _fwd_site(m, cin, c, dev, seed=m + c)
+    before = cb.conv1x1_fwd_fused.launches
+    y, s, q = cb.conv1x1_fwd_fused(x, w)
+    assert cb.conv1x1_fwd_fused.launches == before + 1
+    yr, sr, qr = cb._fwd_plain(x, w)
+    _close(y, yr, 2.0 ** -7)
+    assert float(((s - sr).abs() / yr.float().abs().sum(0)).max()) <= 1e-3
+    assert float(((q - qr).abs() / qr.abs()).max()) <= 1e-3
+
+
+@pytest.mark.parametrize("m,cin,c", [(6272, 1024, 512), (100352, 64, 256),
+                                     (6271, 256, 1024)])
+def test_fwd_hopper_is_bitwise_repeatable(dev, m, cin, c):
+    """Every sum of kernel 1's Hopper instance runs in a fixed order (a
+    job's slices, then the row tiles in one column-sum launch): two
+    launches give the same y, Σy and Σy² bits."""
+    x, w = _fwd_site(m, cin, c, dev, seed=5)
+    a, b = cb.conv1x1_fwd_fused(x, w), cb.conv1x1_fwd_fused(x, w)
+    for u, v in zip(a, b):
+        assert torch.equal(u, v)
+
+
+DQ_HOPPER = [  # (BH, Sq, Sk, dh, causal, with dlse), bf16
+    (8, 1024, 1024, 128, True, False), (8, 1024, 1024, 128, False, False),
+    (8, 1000, 1000, 128, True, False), (8, 1100, 1100, 64, True, True),
+    (8, 512, 1024, 64, False, True), (8, 1100, 700, 32, False, False),
+    (8, 1000, 1000, 32, True, True), (8, 256, 256, 80, True, False),
+    (8, 1024, 1024, 80, False, True),
+]
+
+
+def _dq_inputs(bh, sq, sk, dh, with_dlse, dev, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, do = (torch.randn((bh, sq, dh), generator=g, device=dev)
+             .to(torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn((bh, sk, dh), generator=g, device=dev)
+            .to(torch.bfloat16) for _ in range(2))
+    dlse = (0.1 * torch.randn((bh, sq), generator=g, device=dev)
+            if with_dlse else None)
+    return q, k, v, do, dlse
+
+
+@pytest.mark.parametrize("bh,sq,sk,dh,causal,with_dlse", DQ_HOPPER)
+def test_dq_hopper_matches_plain(dev, bh, sq, sk, dh, causal, with_dlse):
+    """Kernel 6's Hopper instance against `_bwd_dq_plain` fed the same
+    lse and delta (kernels 4 and 5's), every 64-row tile within 2^-7 of
+    the reference tile's norm."""
+    assert fa.flash_instance(torch.bfloat16, dh) == "hopper"
+    q, k, v, do, dlse = _dq_inputs(bh, sq, sk, dh, with_dlse, dev, sq + dh)
+    sc = dh ** -0.5
+    o, lse = fa.flash_fwd(q, k, v, causal, sc)
+    _, _, delta = fa.flash_bwd_dkdv(q, k, v, o, do, lse, dlse, causal, sc)
+    before = fa.flash_bwd_dq.launches
+    dq = fa.flash_bwd_dq(q, k, v, do, lse, delta, causal, sc)
+    assert fa.flash_bwd_dq.launches == before + 1
+    assert bool(torch.isfinite(dq.float()).all())
+    _close_tiles(dq, fa._bwd_dq_plain(q, k, v, do, lse, delta, causal, sc),
+                 2.0 ** -7)
+
+
+def test_dq_hopper_is_bitwise_repeatable(dev):
+    """Each block of kernel 6 owns its dq rows and sums in a fixed order:
+    two launches give the same bits."""
+    q, k, v, do, _ = _dq_inputs(16, 1024, 1024, 128, False, dev, 11)
+    sc = 128 ** -0.5
+    o, lse = fa.flash_fwd(q, k, v, True, sc)
+    _, _, delta = fa.flash_bwd_dkdv(q, k, v, o, do, lse, None, True, sc)
+    a = fa.flash_bwd_dq(q, k, v, do, lse, delta, True, sc)
+    b = fa.flash_bwd_dq(q, k, v, do, lse, delta, True, sc)
+    assert torch.equal(a, b)

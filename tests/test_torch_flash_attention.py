@@ -352,3 +352,22 @@ def test_padding_leaves_lse_and_delta_unchanged(dh, causal):
     _close(delta, delta_p, 1e-6)
     _close(dk, dk_p[..., :dh], 1e-6)
     _close(dv, dv_p[..., :dh], 1e-6)
+
+
+# ---------------------------------------------------------------- instances
+
+@pytest.mark.parametrize("dh", [16, 32, 48, 64, 80, 96, 112, 128])
+def test_bf16_up_to_128_takes_the_hopper_instance(dh):
+    """Kernels 4, 5 and 6 run bf16 at every head dim up to 128 (padded
+    to the D 32, 64 or 128 instance) on their Hopper instances."""
+    assert tfa.flash_instance(torch.bfloat16, dh) == "hopper"
+
+
+@pytest.mark.parametrize("dtype,dh", [
+    (torch.float32, 32), (torch.float32, 64), (torch.float32, 128),
+    (torch.bfloat16, 129), (torch.bfloat16, 200), (torch.bfloat16, 256),
+    (torch.bfloat16, 320), (torch.bfloat16, 512)])
+def test_f32_and_wide_head_dims_take_the_simple_instance(dtype, dh):
+    """f32 (tf32 wgmma takes K-major operands only), D 256 and the wide
+    path above it keep the simple mma.sync kernels."""
+    assert tfa.flash_instance(dtype, dh) == "simple"
