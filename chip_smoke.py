@@ -48,7 +48,18 @@ Phases, each fatal on failure:
      horovod_tpu_torch.transformer_lm with attn="flash": 2 warm-up and
      5 timed steps, 12 launches of each flash kernel per step, all on
      the Hopper instances (bf16, dh 128); then one
-     step from the same weights with attn="local", whose loss must match.
+     step from the same weights with attn="local", whose loss must match;
+  6. the launcher — `python -m horovod_tpu_torch.runner.launch
+     --check-build` names the card and the six kernels built by phase 1;
+     the launcher starts the synthetic benchmark (ResNet-50, 224², bf16,
+     batch 32, HOROVOD_CONV_BLOCK=1) on one rank, which joins its NCCL
+     world through the launcher's `tcp://` coordinator and prints its
+     img/s; `runner.run` runs one step of the same model in a worker,
+     whose loss must equal phase 4's first block-route loss (same seed-0
+     weights, same batch) and whose kernels 1 and 2 launch 28 times
+     each; `--scaling-report 1` starts both of its worlds through
+     `runner.run` and prints the JSON line, and `--scaling-report 2` is
+     refused on one card.
 Then the `kernels` JSON line, the card's name and power limit, and last
 {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
 
@@ -108,6 +119,14 @@ TOL_DELTA = 2e-5            # delta = rowsum(do·o) − dlse, each row against
 TOL_LM_LOSS = 1e-4          # flash vs local attention LM step loss,
                             # relative: ~9x the 1.1e-5 measured on an
                             # H100 (bf16 softmax in "local")
+TOL_LAUNCHED_LOSS = 1e-3    # the launched worker's first ResNet loss vs
+                            # phase 4's, relative: the same weights, batch
+                            # and route, and kernels 1 and 2 repeat bit for
+                            # bit, so only library choices that differ
+                            # between two processes could move it; 1e-3 is
+                            # a quarter of the fused vs unfused gap (4e-3)
+SCALING_KEYS = ["model", "per_rank_batch", "ips_1chip", "ips_per_chip_at_n",
+                "n", "scaling_efficiency"]  # examples/synthetic_benchmark.py
 
 
 def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
@@ -904,6 +923,125 @@ def lm_path(warmup=2, timed=5):
     return out
 
 
+def run_bounded(cmd, timeout, env=None):
+    """Run `cmd` from the repo root in its own session; returns (exit
+    code, stdout + stderr). Past `timeout` it gets SIGTERM (the launcher
+    and the scaling report then terminate their workers' process
+    groups), then its group SIGKILL, and the phase fails."""
+    import signal
+    root = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.Popen(cmd, cwd=root, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.terminate()
+        try:
+            proc.communicate(timeout=30)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.communicate()
+        raise Failed(f"{' '.join(cmd)}: still running after {timeout} s")
+    return proc.returncode, out
+
+
+def launched_path(block_loss: float, phase4_ms: float):
+    """Phase 6: the launcher, `runner.run` and the scaling report drive
+    the ResNet-50 main path on the card in worker processes."""
+    import torch
+    from horovod_tpu_torch import kernels, runner
+    from horovod_tpu_torch import synthetic_benchmark as sb
+    py = sys.executable
+    card = torch.cuda.get_device_name(0)
+    block_env = {"HOROVOD_CONV_BLOCK": "1", "HOROVOD_FUSE_CONV_BN": "0"}
+    out = {"seconds": {}}
+    t_last = [time.perf_counter()]
+
+    def took(step):
+        """Wall seconds since the last step of this phase ended."""
+        now = time.perf_counter()
+        out["seconds"][step] = now - t_last[0]
+        t_last[0] = now
+        return out["seconds"][step]
+
+    rc, text = run_bounded([py, "-m", "horovod_tpu_torch.runner.launch",
+                            "--check-build"], 120)
+    print("\n".join("check-build: " + ln for ln in text.splitlines()
+                    if ln.strip()))
+    need(rc == 0, f"--check-build exited {rc}")
+    need(card in text, "--check-build does not name the card")
+    for name in kernels.SOURCES:
+        need(f"[X] {name} built" in text,
+             f"--check-build does not show kernel {name} built")
+    print(f"check-build: {took('check_build'):.1f} s")
+
+    log_dir = os.path.join("chiprun_out", "launch")
+    rc, text = run_bounded(
+        [py, "-m", "horovod_tpu_torch.runner.launch", "-np", "1",
+         "--output-filename", log_dir, py, "-m",
+         "horovod_tpu_torch.synthetic_benchmark", "--batch-size", "32",
+         "--num-iters", "2"], 600, env=dict(os.environ, **block_env))
+    print("\n".join("launch: " + ln for ln in text.splitlines()
+                    if "<stdout>:" in ln or "horovodrun" in ln))
+    need(rc == 0, f"the launched benchmark exited {rc}")
+    lines = [ln for ln in text.splitlines() if ln.startswith("[0]<stdout>: ")]
+    need(any("Model: resnet50" in ln and card in ln for ln in lines),
+         "the launched worker does not name the card")
+    world = [ln for ln in lines if "World: 1 rank(s) joined over tcp://"
+             in ln and "(nccl)" in ln]
+    need(bool(world), "the launched worker did not join NCCL over the "
+         "launcher's tcp:// coordinator")
+    rate = [float(ln.rsplit(":", 1)[1]) for ln in lines
+            if "Img/sec per rank:" in ln]
+    need(len(rate) == 1 and rate[0] > 0, "no Img/sec per rank figure")
+    out["launched"] = dict(img_per_s=rate[0], step_ms=32e3 / rate[0],
+                           world=world[0], log_dir=log_dir)
+    print(f"launched path: {rate[0]:.1f} img/s per rank, "
+          f"{32e3 / rate[0]:.2f} ms/step (phase 4 in-process: "
+          f"{phase4_ms:.2f} ms/step); {took('launch'):.1f} s")
+
+    res = runner.run(sb.first_step, np=1, extra_env=block_env,
+                     timeout=600)[0]
+    rel = abs(res["loss"] - block_loss) / max(abs(block_loss), 1e-6)
+    out["run"] = dict(res, loss_phase4=block_loss, loss_rel=rel)
+    print(f"runner.run: first loss {res['loss']:.6f} on {res['device']} "
+          f"over {res['rendezvous']}, phase 4's {block_loss:.6f}, relative "
+          f"difference {rel:.3g} (tolerance {TOL_LAUNCHED_LOSS}); launches "
+          f"{res['launches']}; {took('run'):.1f} s")
+    need(res["device"] == card, "runner.run's worker ran elsewhere")
+    need(res["launches"] == {"fwd": 28, "act_bwd": 28},
+         f"runner.run's step: expected 28 + 28 launches, got "
+         f"{res['launches']}")
+    need(rel <= TOL_LAUNCHED_LOSS, "the launched and in-process losses "
+         "disagree")
+
+    report_cmd = [py, "-m", "horovod_tpu_torch.synthetic_benchmark",
+                  "--batch-size", "32", "--num-warmup-batches", "2",
+                  "--num-iters", "2", "--scaling-report"]
+    rc, text = run_bounded(report_cmd + ["1"], 600,
+                           env=dict(os.environ, **block_env))
+    print("\n".join("scaling: " + ln for ln in text.splitlines()
+                    if "<stdout>:" in ln or ln.startswith("{")))
+    need(rc == 0, f"--scaling-report 1 exited {rc}")
+    worlds = [ln for ln in text.splitlines() if "<stdout>: Model:" in ln]
+    need(len(worlds) == 2 and all(card in ln for ln in worlds),
+         "--scaling-report 1: both worlds must run on the card")
+    report = json.loads(text.strip().splitlines()[-1])
+    need(list(report) == SCALING_KEYS and report["n"] == 1
+         and report["ips_1chip"] > 0, f"--scaling-report 1: {report}")
+    out["scaling_report_1"] = report
+    print(f"scaling: --scaling-report 1 {took('scaling_report_1'):.1f} s")
+    rc, text = run_bounded(report_cmd + ["2"], 120)
+    refusal = "--scaling-report 2 needs 2 GPUs, have 1 visible"
+    print(f"scaling: --scaling-report 2 exited {rc}: {text.strip()} "
+          f"({took('scaling_report_2'):.1f} s)")
+    need(rc != 0 and refusal in text, "--scaling-report 2 was not refused "
+         "on one card")
+    out["scaling_report_2"] = dict(rc=rc, message=text.strip())
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -916,6 +1054,13 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     t0 = time.perf_counter()
+    phase_s = {}
+
+    def lap(name):
+        """Wall seconds of the phase that just ended."""
+        phase_s[name] = time.perf_counter() - t0 - sum(phase_s.values())
+        print(f"phase {name}: {phase_s[name]:.1f} s")
+
     kernels.build_all()
     build_s = time.perf_counter() - t0
     print(f"build: {len(kernels.SOURCES)} kernels in {build_s:.1f} s")
@@ -926,6 +1071,7 @@ def main() -> int:
                                        "Compiling entry")):
                 print(f"ptxas {name}: {line.strip()}")
     sass = sass_counts()
+    lap("1 build")
 
     errs = check_kernels(dev, torch.bfloat16)  # the main path's type
     errs32 = check_kernels(dev, torch.float32)
@@ -942,14 +1088,22 @@ def main() -> int:
     agg.update(time_flash(dev))
     wide = time_flash(dev, bh=16, s=1024, dh=512, heads=16)  # the wide path
     torch.cuda.empty_cache()
+    lap("2-3 kernel checks and times")
 
     hvd.init()
     path = main_path()
     torch.cuda.empty_cache()
     path["f32"] = resnet_f32_check()
     torch.cuda.empty_cache()
+    lap("4 ResNet main path")
     lm = lm_path()
     hvd.shutdown()
+    torch.cuda.empty_cache()
+    lap("5 LM main path")
+    launched = launched_path(path["block"]["losses"][0],
+                             path["block"]["step_ms"])
+    lap("6 launcher")
+    print(f"total: {time.perf_counter() - t0:.1f} s")
 
     src = "horovod_tpu_torch/csrc/"
     fa = "horovod_tpu/ops/flash_attention.py"
@@ -989,7 +1143,9 @@ def main() -> int:
                    "sites": detail + detail32, "conv_f32": agg32,
                    "conv_f32_max_abs_err": errs32,
                    "flash_checks": flash_checks, "main_path": path,
-                   "lm_path": lm, "nvidia_smi": smi}, f, indent=1)
+                   "lm_path": lm, "launched_path": launched,
+                   "phase_s": phase_s,
+                   "nvidia_smi": smi}, f, indent=1)
     print(json.dumps(line))
     need(bool(smi), "nvidia-smi gave no card name and power limit")
     print(smi[0])  # as nvidia-smi gives them: "<name>, <power.limit>"

@@ -1,7 +1,9 @@
 """horovod_tpu_torch: the PyTorch/CUDA port of horovod_tpu.
 
-Data-parallel training on NVIDIA GPUs with Horovod's API: `hvd.init()`
-joins one process per GPU into a torch.distributed world (NCCL; gloo
+Data-parallel training on NVIDIA GPUs with Horovod's API: the launcher
+(`python -m horovod_tpu_torch.runner.launch -np N ...`, or
+`horovod_tpu_torch.runner.run(fn, np=N)`) starts one process per GPU,
+`hvd.init()` joins them into a torch.distributed world (NCCL; gloo
 with `init(device="cpu")`), `hvd.broadcast_parameters` syncs the start,
 and `hvd.DistributedOptimizer` all-reduces the gradients in buckets
 launched during the backward pass. The ResNet's fused 1x1-conv +

@@ -14,3 +14,25 @@ class HorovodInternalError(HorovodError):
 class KernelError(HorovodError):
     """A hand-written CUDA kernel failed to build, was refused at launch,
     or was given tensors it does not take."""
+
+
+class RetryError(HorovodError):
+    """A RetryPolicy exhausted its attempts or overall deadline.
+
+    `__cause__` carries the last underlying failure
+    (common/resilience.py).
+    """
+
+
+class CircuitOpenError(HorovodError):
+    """A CircuitBreaker rejected the call without attempting it
+    (common/resilience.py)."""
+
+
+class ResetLimitExceededError(HorovodError):
+    """The elastic driver hit --reset-limit: too many topology resets.
+
+    Typed so orchestrators can tell "the job churned itself to death"
+    from other driver failures.
+    """
+

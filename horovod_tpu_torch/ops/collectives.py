@@ -6,7 +6,12 @@ horovod_tpu/ops/collectives.py).
 Every collective is issued with `async_op=True`; a `Handle` holds the
 `Work` and the output, `synchronize` waits on it and `poll` reports
 `Work.is_completed()`. Average is a sum divided by the world size in the
-tensor's own dtype, as the JAX package divides after its psum.
+tensor's own dtype, as the JAX package divides after its psum: floor
+division for an integer tensor, true division otherwise
+(horovod_tpu/ops/collectives.py:512-516). Pre- and postscale factors are
+cast to the tensor's dtype before they multiply it, as the JAX package
+casts them (`jnp.asarray(f, x.dtype)`): a bf16 tensor is scaled by the
+bf16-rounded factor and an integer tensor by the truncated one.
 """
 
 from __future__ import annotations
@@ -46,6 +51,20 @@ def _normalize_op(average: Optional[bool], op) -> T.ReduceOp:
     return T.ReduceOp(op)
 
 
+def average(y: torch.Tensor, k: int) -> torch.Tensor:
+    """A sum over k ranks divided by k in y's own dtype: floor division
+    for integers, true division otherwise."""
+    kt = torch.tensor(k, dtype=y.dtype, device=y.device)
+    if y.is_floating_point() or y.is_complex():
+        return y / kt
+    return torch.div(y, kt, rounding_mode="floor")
+
+
+def scale(x: torch.Tensor, factor: float) -> torch.Tensor:
+    """x times `factor` cast to x's dtype."""
+    return x * torch.tensor(factor, dtype=x.dtype, device=x.device)
+
+
 def _launch(rop: T.ReduceOp, prescale: float, postscale: float
             ) -> Callable[[torch.Tensor], Handle]:
     """A function that starts the all-reduce of one tensor in place."""
@@ -53,14 +72,14 @@ def _launch(rop: T.ReduceOp, prescale: float, postscale: float
 
     def finish(y: torch.Tensor) -> torch.Tensor:
         if rop == T.ReduceOp.AVERAGE and k != 1:
-            y = y / torch.tensor(k, dtype=y.dtype, device=y.device)
+            y = average(y, k)
         if postscale != 1.0:
-            y = y * postscale
+            y = scale(y, postscale)
         return y
 
     def start(x: torch.Tensor) -> Handle:
         if prescale != 1.0:
-            x = x * prescale
+            x = scale(x, prescale)
         work = dist.all_reduce(x, op=dist.ReduceOp.SUM, async_op=True)
         return Handle(work, x, finish)
 

@@ -25,7 +25,7 @@ import torch.distributed as dist
 
 from horovod_tpu_torch.common import types as T
 from horovod_tpu_torch.core import topology
-from horovod_tpu_torch.ops import fusion
+from horovod_tpu_torch.ops import collectives, fusion
 from horovod_tpu_torch.ops.compression import Compression
 
 
@@ -107,8 +107,7 @@ class DistributedOptimizer:
             work, wire, ctx = self._inflight[bi]
             work.wait()
             if self.op == T.Average and k != 1:
-                wire = wire / torch.tensor(k, dtype=wire.dtype,
-                                           device=wire.device)
+                wire = collectives.average(wire, k)
             fusion.unpack(b, self.compression.decompress(wire, ctx),
                           flat_grads)
         self._reset()

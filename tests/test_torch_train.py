@@ -162,7 +162,21 @@ def test_package_imports_no_jax_at_runtime():
     code = ("import sys, horovod_tpu_torch, horovod_tpu_torch.models.resnet,"
             " horovod_tpu_torch.models.convert, "
             "horovod_tpu_torch.synthetic_benchmark, "
-            "horovod_tpu_torch.profile_step;"
+            "horovod_tpu_torch.profile_step, horovod_tpu_torch.runner, "
+            "horovod_tpu_torch.runner.launch, "
+            "horovod_tpu_torch.runner.rendezvous, "
+            "horovod_tpu_torch.runner.network, "
+            "horovod_tpu_torch.runner.kv_ha, "
+            "horovod_tpu_torch.runner.mpi_run, "
+            "horovod_tpu_torch.runner.js_run, "
+            "horovod_tpu_torch.runner.task_runner, "
+            "horovod_tpu_torch.runner.results, "
+            "horovod_tpu_torch.runner.hosts, "
+            "horovod_tpu_torch.runner.safe_exec, "
+            "horovod_tpu_torch.runner.secret, "
+            "horovod_tpu_torch.common.config, "
+            "horovod_tpu_torch.common.hvd_logging, "
+            "horovod_tpu_torch.common.resilience;"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'horovod_tpu', 'optax')];"
             "print(bad); sys.exit(1 if bad else 0)")
