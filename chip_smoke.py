@@ -59,7 +59,22 @@ Phases, each fatal on failure:
      weights, same batch) and whose kernels 1 and 2 launch 28 times
      each; `--scaling-report 1` starts both of its worlds through
      `runner.run` and prints the JSON line, and `--scaling-report 2` is
-     refused on one card.
+     refused on one card;
+  7. collectives — hvd.init() on NCCL with process sets and
+     hierarchical mode on: every op of ops/collectives.py (Min, Max,
+     Product and Adasum through allreduce and grouped_allreduce,
+     allgather, reducescatter, alltoall with splits, broadcast, a set
+     [0] added and removed, the hierarchical allreduce and allgather,
+     DuplicateNameError on a reused async name) on CUDA tensors in bf16,
+     f32 and int32, bit for bit against k = 1's result, then
+     `collective_bench.check` against numpy, and the flat allreduce of
+     ResNet-50's 25,557,032 bf16 gradient values timed. With two or more
+     cards, a world of min(4, count) through `runner.run` holds every op
+     against numpy (sets {0, 2} and {0, 1, 2}, uneven allgather,
+     reducescatter and alltoall, hierarchical against flat under
+     HOROVOD_TPU_MESH_SHAPE=2x2 at 4) and prints the bus GB/s of the flat
+     and hierarchical allreduce, allgather and alltoall; with one card it
+     says so and checks nothing more.
 Then the `kernels` JSON line, the card's name and power limit, and last
 {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
 
@@ -1042,6 +1057,154 @@ def launched_path(block_loss: float, phase4_ms: float):
     return out
 
 
+PHASE7_ENV = {"HOROVOD_DYNAMIC_PROCESS_SETS": "1",
+              "HOROVOD_HIERARCHICAL_ALLREDUCE": "1",
+              "HOROVOD_HIERARCHICAL_ALLGATHER": "1"}
+
+
+def one_card_ops(dev):
+    """Every collective of ops/collectives.py on CUDA tensors in bf16, f32
+    and int32 in a world of 1, each against what the JAX package's
+    semantics give at k = 1 (bit for bit): Min, Max, Product and Adasum are x itself
+    through allreduce and grouped_allreduce; allgather, reducescatter
+    (Sum; Average divides by 1, an int32 tensor coming back float32, as
+    `/` gives in the JAX package), alltoall with splits [n], broadcast
+    and the hierarchical allreduce and allgather (groups of one rank)
+    give x back; a set [0] added and removed; DuplicateNameError on a
+    reused async name."""
+    import torch
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.core import topology
+    g = torch.Generator(device=dev).manual_seed(7)
+    cases = 0
+
+    def same(what, got, want):
+        nonlocal cases
+        need(got.is_cuda, f"{what}: result left the card")
+        need(got.dtype == want.dtype and torch.equal(got, want),
+             f"{what}: {got.dtype} result differs from k = 1's "
+             f"{want.dtype} one")
+        cases += 1
+
+    cfg = topology.config()
+    for dt in (torch.bfloat16, torch.float32, torch.int32):
+        if dt == torch.int32:
+            x = torch.randint(-9, 10, (4099, 3), generator=g, device=dev,
+                              dtype=dt)
+        else:
+            x = torch.randn(4099, 3, generator=g, device=dev).to(dt)
+        x2 = x[:7, 0].clone()
+        for op in (hvd.Min, hvd.Max, hvd.Product, hvd.Adasum):
+            same(f"allreduce {op.name} {dt}", hvd.allreduce(x, op=op), x)
+            a, b = hvd.grouped_allreduce([x, x2], op=op)
+            same(f"grouped_allreduce {op.name} {dt}", a, x)
+            same(f"grouped_allreduce {op.name} {dt}", b, x2)
+        same(f"allgather {dt}", hvd.allgather(x), x)
+        same(f"reducescatter Sum {dt}", hvd.reducescatter(x, op=hvd.Sum), x)
+        avg = x.float() if dt == torch.int32 else x
+        same(f"reducescatter Average {dt}", hvd.reducescatter(x), avg)
+        y, recv = hvd.alltoall(x, splits=[x.shape[0]])
+        same(f"alltoall {dt}", y, x)
+        need(recv.tolist() == [x.shape[0]], "alltoall received splits")
+        same(f"broadcast {dt}", hvd.broadcast(x, 0), x)
+        need(cfg.hierarchical_allreduce and topology.hier() is not None,
+             "hierarchical mode's groups were not built")
+        same(f"hierarchical allreduce {dt}", hvd.allreduce(x, op=hvd.Sum), x)
+        same(f"hierarchical allgather {dt}", hvd.allgather(x), x)
+        ps = hvd.add_process_set([0])
+        same(f"allreduce over set [0] {dt}",
+             hvd.allreduce(x, op=hvd.Sum, process_set=ps), x)
+        hvd.remove_process_set(ps)
+        h = hvd.allreduce_async(x, name="phase7")
+        try:
+            hvd.allreduce_async(x, name="phase7")
+            raise Failed("a reused async name was not refused")
+        except hvd.DuplicateNameError:
+            pass
+        same(f"named async allreduce {dt}", hvd.synchronize(h), x)
+    return cases
+
+
+def collectives_path():
+    """Phase 7: the eager collectives on NCCL. One card: every op
+    in a world of 1 (one_card_ops, then collective_bench.check against
+    numpy), and the flat allreduce of ResNet-50's gradient values in bf16
+    timed (device ms from the profiler, host ms of call plus synchronize).
+    Two or more cards: a world of min(4, count) through runner.run, every
+    op against numpy (sets {0, 2} and {0, 1, 2}, uneven allgather,
+    reducescatter and alltoall, hierarchical against flat under
+    HOROVOD_TPU_MESH_SHAPE=2x2 at 4), then the bus GB/s of the flat and
+    hierarchical allreduce, allgather and alltoall on the same values."""
+    import functools
+    import torch
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import collective_bench as cb, runner
+    out = {}
+    saved = {k: os.environ.get(k) for k in PHASE7_ENV}
+    os.environ.update(PHASE7_ENV)
+    hvd.init()
+    try:
+        dev = hvd.device()
+        need(dev.type == "cuda", "phase 7 is not on the card")
+        out["one_card_cases"] = one_card_ops(dev)
+        out["check_k1"] = cb.check(dev)
+        from horovod_tpu_torch.core import topology
+        topology.config().hierarchical_allreduce = False
+        x = torch.randn(cb.RESNET50_GRAD_VALUES, device=dev).to(
+            torch.bfloat16)
+
+        def call():
+            return hvd.allreduce(x, op=hvd.Sum)
+
+        dev_ms = device_ms(call)
+        t0 = time.perf_counter()
+        for _ in range(10):
+            call()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3 / 10
+        need(torch.equal(call(), x), "the flat allreduce at k = 1 changed x")
+        out["allreduce_flat_k1"] = dict(values=cb.RESNET50_GRAD_VALUES,
+                                        device_ms=dev_ms, host_ms=host_ms)
+    finally:
+        hvd.shutdown()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    print(f"collectives: {out['one_card_cases']} one-card cases and "
+          f"{len(out['check_k1'])} numpy checks equal on "
+          f"{torch.cuda.get_device_name(0)}; flat allreduce of "
+          f"{cb.RESNET50_GRAD_VALUES} bf16 values at k = 1: device "
+          f"{dev_ms:.4f} ms, host {host_ms:.4f} ms")
+    n = min(4, torch.cuda.device_count())
+    if n < 2:
+        print("collectives: the multi-rank checks and bus GB/s need at "
+              "least two cards; 1 is present")
+        return out
+    env = dict(PHASE7_ENV)
+    if n == 4:
+        env["HOROVOD_TPU_MESH_SHAPE"] = "2x2"
+    res = cb.summarize(runner.run(functools.partial(cb.worker, None),
+                                  np=n, extra_env=env, timeout=600))
+    need(res["size"] == n and res["device"] == torch.cuda.get_device_name(0),
+         f"the {n}-rank world ran elsewhere: {res['device']}")
+    need(n != 4 or res["hier"] == [2, 2], f"split {res['hier']}, not 2x2")
+    out[f"world_{n}"] = res
+    print(f"collectives: {n} ranks, split {res['hier']}, "
+          f"{len(res['check_max_err'])} numpy checks passed")
+    for name, b in res["bench"].items():
+        if isinstance(b, dict):
+            lib = "none" if b["library_ms"] is None \
+                else f"{b['library_ms']:.4f} ms"
+            print(f"collectives: {name} of {res['bench']['values']} bf16 "
+                  f"values over {n} cards: {b['ms']:.4f} ms, bus "
+                  f"{b['bus_gb_s']:.2f} GB/s; one library call {lib}")
+    print(f"collectives: allgather's size exchange "
+          f"{res['bench']['size_exchange_ms']:.4f} ms")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1103,6 +1266,8 @@ def main() -> int:
     launched = launched_path(path["block"]["losses"][0],
                              path["block"]["step_ms"])
     lap("6 launcher")
+    collectives = collectives_path()
+    lap("7 collectives")
     print(f"total: {time.perf_counter() - t0:.1f} s")
 
     src = "horovod_tpu_torch/csrc/"
@@ -1144,6 +1309,7 @@ def main() -> int:
                    "conv_f32_max_abs_err": errs32,
                    "flash_checks": flash_checks, "main_path": path,
                    "lm_path": lm, "launched_path": launched,
+                   "collectives_path": collectives,
                    "phase_s": phase_s,
                    "nvidia_smi": smi}, f, indent=1)
     print(json.dumps(line))

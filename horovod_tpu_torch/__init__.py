@@ -4,24 +4,37 @@ Data-parallel training on NVIDIA GPUs with Horovod's API: the launcher
 (`python -m horovod_tpu_torch.runner.launch -np N ...`, or
 `horovod_tpu_torch.runner.run(fn, np=N)`) starts one process per GPU,
 `hvd.init()` joins them into a torch.distributed world (NCCL; gloo
-with `init(device="cpu")`), `hvd.broadcast_parameters` syncs the start,
+with `init(device="cpu")`), with process sets and the local/cross split
+for the eager collectives (allreduce with Average, Sum, Min, Max,
+Product and Adasum, allgather, reducescatter, alltoall, broadcast),
+`hvd.broadcast_parameters` syncs the start,
 and `hvd.DistributedOptimizer` all-reduces the gradients in buckets
 launched during the backward pass. The ResNet's fused 1x1-conv +
 BatchNorm (+ReLU) sites run hand-written CUDA kernels built from
 `csrc/` at first use. The package imports neither JAX nor horovod_tpu.
 """
 
-from horovod_tpu_torch.common.types import Average, ReduceOp, Sum  # noqa: F401
+from horovod_tpu_torch.common.types import (  # noqa: F401
+    Adasum, Average, Max, Min, Product, ReduceOp, Sum,
+)
 from horovod_tpu_torch.common.exceptions import (  # noqa: F401
-    HorovodError, HorovodInternalError, KernelError,
+    DuplicateNameError, HorovodError, HorovodInternalError, KernelError,
+    TensorShapeMismatchError,
 )
 from horovod_tpu_torch.core.topology import (  # noqa: F401
-    device, init, is_initialized, local_rank, local_size, rank, shutdown,
-    size,
+    cross_rank, cross_size, device, init, is_homogeneous, is_initialized,
+    local_rank, local_size, rank, shutdown, size,
+)
+from horovod_tpu_torch.core.process_sets import (  # noqa: F401
+    ProcessSet, add_process_set, axis_process_set, get_process_set,
+    global_process_set, remove_process_set,
 )
 from horovod_tpu_torch.ops.collectives import (  # noqa: F401
-    Handle, allreduce, allreduce_async, barrier, broadcast,
-    bucketed_allreduce, grouped_allreduce, poll, synchronize,
+    Handle, allgather, allgather_async, allreduce, allreduce_async,
+    alltoall, alltoall_async, barrier, broadcast, broadcast_async,
+    bucketed_allreduce, bucketed_allreduce_async, grouped_allgather,
+    grouped_allreduce, grouped_allreduce_async, grouped_reducescatter,
+    poll, reducescatter, reducescatter_async, synchronize,
 )
 from horovod_tpu_torch.ops.compression import Compression  # noqa: F401
 from horovod_tpu_torch.optim.optimizer import (  # noqa: F401

@@ -1,11 +1,13 @@
 """Environment knobs read by the PyTorch package.
 
 A copy of the part of horovod_tpu/common/config.py that the port reads:
-the fusion threshold, the bucket cap and order, and every knob the
-launcher writes (`runner/launch.py args_to_env`) or reads to place and
-join the workers (rank, size, local and cross topology, rendezvous,
-controller, the MPI rank indirection). The knob names and defaults are
-the JAX package's.
+the fusion threshold, the bucket cap and order, the collectives' modes
+(hierarchical allreduce and allgather, the two-level split of
+HOROVOD_TPU_MESH_SHAPE, Adasum's vector halving, dynamic process sets),
+and every knob the launcher writes (`runner/launch.py args_to_env`) or
+reads to place and join the workers (rank, size, local and cross
+topology, rendezvous, controller, the MPI rank indirection). The knob
+names and defaults are the JAX package's.
 """
 
 from __future__ import annotations
@@ -34,6 +36,11 @@ HOROVOD_LOG_LEVEL = "HOROVOD_LOG_LEVEL"
 HOROVOD_LOG_HIDE_TIME = "HOROVOD_LOG_HIDE_TIME"
 HOROVOD_BUCKET_CAP = "HOROVOD_BUCKET_CAP"
 HOROVOD_BUCKET_REVERSE = "HOROVOD_BUCKET_REVERSE"
+HOROVOD_DYNAMIC_PROCESS_SETS = "HOROVOD_DYNAMIC_PROCESS_SETS"
+HOROVOD_ADASUM_HALVING = "HOROVOD_ADASUM_HALVING"
+# The two-level split as "dcn:A,ici:B" or "AxB": dcn is the cross level,
+# ici the local one (core/topology.py).
+HOROVOD_TPU_MESH_SHAPE = "HOROVOD_TPU_MESH_SHAPE"
 
 # Launcher-injected topology and rendezvous (runner/launch.py).
 HOROVOD_RANK = "HOROVOD_RANK"
@@ -111,12 +118,19 @@ class Config:
     bucket_reverse: bool = True
     cycle_time_ms: float = 0.0
     cache_capacity: int = DEFAULT_CACHE_CAPACITY
+    adasum_halving: bool = False
+    hierarchical_allreduce: bool = False
+    hierarchical_allgather: bool = False
+    dynamic_process_sets: bool = False
+    mesh_shape: str = ""
 
     # Topology (launcher-injected); None where the env does not say.
     rank: Optional[int] = None
     size: Optional[int] = None
     local_rank: Optional[int] = None
     local_size: Optional[int] = None
+    cross_rank: Optional[int] = None
+    cross_size: Optional[int] = None
     rendezvous_addr: str = ""
     rendezvous_port: int = 0
     coordinator_addr: str = ""
@@ -132,11 +146,18 @@ class Config:
             cycle_time_ms=_env_float(HOROVOD_CYCLE_TIME, 0.0),
             cache_capacity=_env_int(HOROVOD_CACHE_CAPACITY,
                                     DEFAULT_CACHE_CAPACITY),
+            adasum_halving=_env_bool(HOROVOD_ADASUM_HALVING),
+            hierarchical_allreduce=_env_bool(HOROVOD_HIERARCHICAL_ALLREDUCE),
+            hierarchical_allgather=_env_bool(HOROVOD_HIERARCHICAL_ALLGATHER),
+            dynamic_process_sets=_env_bool(HOROVOD_DYNAMIC_PROCESS_SETS),
+            mesh_shape=os.environ.get(HOROVOD_TPU_MESH_SHAPE, ""),
             rank=_env_or_mpi(HOROVOD_RANK, HOROVOD_MPI_RANK_ENV),
             size=_opt_int(HOROVOD_SIZE),
             local_rank=_env_or_mpi(HOROVOD_LOCAL_RANK,
                                    HOROVOD_MPI_LOCAL_RANK_ENV),
             local_size=_opt_int(HOROVOD_LOCAL_SIZE),
+            cross_rank=_opt_int(HOROVOD_CROSS_RANK),
+            cross_size=_opt_int(HOROVOD_CROSS_SIZE),
             rendezvous_addr=os.environ.get(HOROVOD_RENDEZVOUS_ADDR, ""),
             rendezvous_port=_env_int(HOROVOD_RENDEZVOUS_PORT, 0),
             coordinator_addr=os.environ.get(

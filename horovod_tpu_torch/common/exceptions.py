@@ -36,3 +36,12 @@ class ResetLimitExceededError(HorovodError):
     from other driver failures.
     """
 
+
+
+class TensorShapeMismatchError(HorovodError):
+    """Ranks submitted mismatched shapes for the same collective."""
+
+
+class DuplicateNameError(HorovodError):
+    """Two in-flight collectives share a name: an async handle holds its
+    name until it is synchronized."""

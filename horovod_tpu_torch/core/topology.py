@@ -1,5 +1,5 @@
 """Process world over torch.distributed (counterpart of
-horovod_tpu/core/topology.py init/shutdown/rank/size).
+horovod_tpu/core/topology.py init/shutdown/rank/size/local/cross).
 
 One process drives one device. `init()` reads the env the launcher
 injects (runner/launch.py): HOROVOD_RANK (or, under mpirun/jsrun, the
@@ -18,7 +18,18 @@ caller asks for `device="cpu"`, which runs gloo on the host. With no
 CUDA and no `device="cpu"`, or a local rank with no card of its own,
 init raises: the package never carries on quietly on the CPU.
 
-Only the global process set exists in this package so far.
+The two-level (cross, local) split of the world is the launcher's:
+HOROVOD_CROSS_RANK/SIZE and HOROVOD_LOCAL_RANK/SIZE, ranks contiguous
+per host. init() gathers each rank's (local size, cross rank, local
+rank) once, so every rank reaches the same verdict on `is_homogeneous()`
+and on whether the split holds. HOROVOD_TPU_MESH_SHAPE ("dcn:A,ici:B"
+or "AxB") overrides the split as the JAX package reshapes its mesh to
+("dcn", "ici"): dcn is the cross level, ici the local one, rank r at
+(r // B, r % B). Under HOROVOD_HIERARCHICAL_ALLREDUCE or _ALLGATHER,
+init builds one local group per cross index and one cross group per
+local index, in rank order (ops/collectives.py uses them for the global
+set). `init(process_sets=[...])` registers sets beyond the global one
+(core/process_sets.py).
 """
 
 from __future__ import annotations
@@ -28,7 +39,7 @@ import datetime
 import os
 import tempfile
 import threading
-from typing import Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -44,10 +55,27 @@ class _State:
     size: int = 1
     local_rank: int = 0
     local_size: int = 1
+    cross_rank: int = 0
+    cross_size: int = 1
+    homogeneous: bool = True
     device: Optional[torch.device] = None
     config: Optional[C.Config] = None
     store_file: str = ""  # FileStore we created for a one-process world
     rendezvous: str = ""  # where the world met, e.g. "tcp://10.0.0.1:2345"
+    hier: Optional["Hier"] = None  # hierarchical mode's groups
+    process_set_table: object = None  # core/process_sets.ProcessSetTable
+
+
+@dataclasses.dataclass(frozen=True)
+class Hier:
+    """The two-level split: n_cross x n_local ranks, rank r at cross
+    index r // n_local and local index r % n_local; this rank's local
+    group (its row) and cross group (its column)."""
+
+    n_cross: int
+    n_local: int
+    local_group: object
+    cross_group: object
 
 
 _state = _State()
@@ -112,13 +140,82 @@ def _note_no_effect(cfg: C.Config) -> None:
             cfg.cache_capacity)
 
 
+def parse_mesh_shape(spec: str, size: int) -> Tuple[int, int]:
+    """(dcn, ici) from HOROVOD_TPU_MESH_SHAPE ("dcn:2,ici:4" or "2x4"),
+    with the JAX package's errors (horovod_tpu/core/topology.py
+    _build_hier_mesh)."""
+    axes = {"dcn": 1, "ici": 1}
+    s = spec.strip().lower()
+    try:
+        if "x" in s and ":" not in s:
+            a, b = s.split("x", 1)
+            axes["dcn"], axes["ici"] = int(a), int(b)
+        else:
+            for part in s.split(","):
+                name, n = part.split(":")
+                if name.strip() not in axes:
+                    raise ValueError(name)
+                axes[name.strip()] = int(n)
+    except (ValueError, TypeError):
+        raise HorovodError(
+            f"bad HOROVOD_TPU_MESH_SHAPE '{spec}': expected 'dcn:A,ici:B' "
+            f"or 'AxB'")
+    if axes["dcn"] * axes["ici"] != size:
+        raise HorovodError(
+            f"HOROVOD_TPU_MESH_SHAPE '{spec}' = {axes['dcn']}x{axes['ici']} "
+            f"does not cover {size} devices")
+    return axes["dcn"], axes["ici"]
+
+
+def _layout(size: int, row: Sequence[int], dev: torch.device
+            ) -> List[List[int]]:
+    """Every rank's (local size, cross rank, local rank), in rank order:
+    one all_gather at init."""
+    if size == 1:
+        return [list(row)]
+    mine = torch.tensor(row, dtype=torch.int64, device=dev)
+    rows = [torch.empty_like(mine) for _ in range(size)]
+    dist.all_gather(rows, mine)
+    return [r.tolist() for r in rows]
+
+
+def _split(cfg: C.Config, size: int, layout: List[List[int]]
+           ) -> Optional[Tuple[int, int]]:
+    """(n_cross, n_local): HOROVOD_TPU_MESH_SHAPE's, else the launcher's
+    where every host has the same local size and the ranks run host by
+    host; None where the launcher's layout is not such a grid."""
+    if cfg.mesh_shape:
+        return parse_mesh_shape(cfg.mesh_shape, size)
+    n_local = layout[0][0]
+    if size % n_local or any(
+            (ls, cr, lr) != (n_local, r // n_local, r % n_local)
+            for r, (ls, cr, lr) in enumerate(layout)):
+        return None
+    return size // n_local, n_local
+
+
+def _hier_groups(n_cross: int, n_local: int, rank: int) -> Hier:
+    """Every rank creates every group, in the same order (new_group is
+    collective over the world): the local groups (rows), then the cross
+    groups (columns)."""
+    rows = [dist.new_group(list(range(c * n_local, (c + 1) * n_local)))
+            for c in range(n_cross)]
+    cols = [dist.new_group(list(range(j, n_cross * n_local, n_local)))
+            for j in range(n_local)]
+    return Hier(n_cross, n_local, rows[rank // n_local],
+                cols[rank % n_local])
+
+
 def init(device: Optional[str] = None,
-         init_method: Optional[str] = None) -> None:
+         init_method: Optional[str] = None,
+         process_sets: Optional[Sequence] = None) -> None:
     """Join the process world (hvd.init()).
 
     device: None (the card, `cuda:<local_rank>`) or "cpu" (gloo).
     init_method: a torch.distributed init URL (`file://...` or
       `tcp://host:port`) in place of the launcher's coordinator.
+    process_sets: ProcessSet objects to register beyond the global one;
+      every rank passes the same list.
     """
     with _lock:
         if _state.initialized:
@@ -128,6 +225,12 @@ def init(device: Optional[str] = None,
         size = cfg.size if cfg.size is not None else 1
         local_rank = cfg.local_rank if cfg.local_rank is not None else rank
         local_size = cfg.local_size if cfg.local_size is not None else size
+        cross_rank = cfg.cross_rank if cfg.cross_rank is not None \
+            else rank // local_size
+        cross_size = cfg.cross_size if cfg.cross_size is not None \
+            else -(-size // local_size)
+        if cfg.mesh_shape:  # refuse a bad shape before joining the world
+            parse_mesh_shape(cfg.mesh_shape, size)
         if device is None:
             if not torch.cuda.is_available():
                 raise HorovodError(
@@ -174,12 +277,25 @@ def init(device: Optional[str] = None,
         else:
             dist.init_process_group(backend, store=store, rank=rank,
                                     world_size=size)
+        layout = _layout(size, (local_size, cross_rank, local_rank), dev)
+        split = _split(cfg, size, layout)
+        hier = None
+        if split is not None and (cfg.hierarchical_allreduce
+                                  or cfg.hierarchical_allgather):
+            hier = _hier_groups(*split, rank)
         _state.rank, _state.size = rank, size
         _state.local_rank, _state.local_size = local_rank, local_size
+        _state.cross_rank, _state.cross_size = cross_rank, cross_size
+        _state.homogeneous = len({row[0] for row in layout}) == 1
+        _state.hier = hier
         _state.device, _state.config = dev, cfg
         _state.store_file = store_file
         _state.rendezvous = where
+        from horovod_tpu_torch.core import process_sets as ps_mod
+        _state.process_set_table = ps_mod.ProcessSetTable(size)
         _state.initialized = True
+        for ps in process_sets or ():
+            _state.process_set_table.register(ps)
 
 
 def shutdown() -> None:
@@ -187,6 +303,7 @@ def shutdown() -> None:
     with _lock:
         if not _state.initialized:
             return
+        _state.process_set_table.clear()
         dist.destroy_process_group()
         if _state.store_file and os.path.exists(_state.store_file):
             os.unlink(_state.store_file)
@@ -223,6 +340,26 @@ def local_rank() -> int:
 
 def local_size() -> int:
     return _require().local_size
+
+
+def cross_rank() -> int:
+    return _require().cross_rank
+
+
+def cross_size() -> int:
+    return _require().cross_size
+
+
+def is_homogeneous() -> bool:
+    """Every host runs the same number of ranks (the local sizes that
+    init gathered agree)."""
+    return _require().homogeneous
+
+
+def hier() -> Optional[Hier]:
+    """The hierarchical split's groups, where HOROVOD_HIERARCHICAL_*
+    asked for them and the world splits into a grid; else None."""
+    return _require().hier
 
 
 def device() -> torch.device:

@@ -1,5 +1,7 @@
 """Gradient compression (counterpart of horovod_tpu/ops/compression.py):
-`none` and `fp16`, the two that `--fp16-allreduce` chooses between."""
+`none`, `fp16` (what `--fp16-allreduce` chooses), `bf16`, and
+`ThresholdedCompressor`, which compresses only tensors of at least
+`min_bytes`."""
 
 from __future__ import annotations
 
@@ -37,18 +39,56 @@ class NoneCompressor(Compressor):
         return tensor
 
 
-class FP16Compressor(Compressor):
-    """Cast floating tensors to fp16 on the wire."""
+class _CastCompressor(Compressor):
+    """Cast floating tensors to `cast_to` on the wire."""
 
-    @staticmethod
-    def compress(tensor):
-        if tensor.is_floating_point() and tensor.dtype != torch.float16:
-            return tensor.to(torch.float16), tensor.dtype
+    cast_to: torch.dtype = torch.float16
+
+    @classmethod
+    def compress(cls, tensor):
+        if tensor.is_floating_point() and tensor.dtype != cls.cast_to:
+            return tensor.to(cls.cast_to), tensor.dtype
         return tensor, None
 
-    @staticmethod
-    def decompress(tensor, ctx):
+    @classmethod
+    def decompress(cls, tensor, ctx):
         return tensor.to(ctx) if ctx is not None else tensor
+
+
+class FP16Compressor(_CastCompressor):
+    """Cast floating tensors to fp16 on the wire."""
+
+    cast_to = torch.float16
+
+
+class BF16Compressor(_CastCompressor):
+    """Cast floating tensors to bf16 on the wire."""
+
+    cast_to = torch.bfloat16
+
+
+class ThresholdedCompressor(Compressor):
+    """Apply `inner` (default bf16) only to tensors of at least
+    `min_bytes`: large gradients ride the narrow type, the long tail of
+    small bias and norm gradients keeps its precision."""
+
+    def __init__(self, inner=None, min_bytes: int = 1 << 20):
+        self.inner = inner if inner is not None else BF16Compressor
+        self.min_bytes = int(min_bytes)
+
+    def compress(self, tensor):
+        if tensor.numel() * tensor.element_size() >= self.min_bytes:
+            return self.inner.compress(tensor)
+        return tensor, None
+
+    def decompress(self, tensor, ctx):
+        return self.inner.decompress(tensor, ctx)
+
+    def wire_dtype(self, dtype: torch.dtype) -> torch.dtype:
+        """The dtype buckets are planned in: the tensor's own, since
+        whether a message is compressed depends on its size
+        (DistributedOptimizer decides it for each packed bucket)."""
+        return dtype
 
 
 class Compression:
@@ -56,3 +96,15 @@ class Compression:
 
     none = NoneCompressor
     fp16 = FP16Compressor
+    bf16 = BF16Compressor
+
+    @staticmethod
+    def thresholded(inner=None, min_bytes: int = 1 << 20
+                    ) -> ThresholdedCompressor:
+        """`inner` (default bf16) for tensors of at least `min_bytes`,
+        identity below."""
+        return ThresholdedCompressor(inner, min_bytes)
+
+
+# bf16 on the wire for tensors of 1 MiB and more.
+Compression.bf16_large = ThresholdedCompressor(BF16Compressor, 1 << 20)

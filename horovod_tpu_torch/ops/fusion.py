@@ -7,9 +7,9 @@ above max(threshold, 1 MiB) are cut into near-equal chunks first, and
 covers gradients that the backward pass produces together. Plans are
 identical to the JAX package's for identical (shape, dtype) lists.
 
-`fused_reduce` is the eager counterpart of fused_reduce_blocks: flatten,
-`torch.cat` each bucket's segments, one collective per bucket, split
-back. Every bucket is launched before any is waited on.
+`fused_launch` is the eager counterpart of fused_reduce_blocks:
+flatten, `torch.cat` each bucket's segments, one collective per bucket,
+split back. Every bucket is launched before any is waited on.
 """
 
 from __future__ import annotations
@@ -130,21 +130,28 @@ def unpack(bucket: Bucket, flat: torch.Tensor,
         off += it.size
 
 
-def fused_reduce(tensors: Sequence[torch.Tensor],
+def fused_launch(tensors: Sequence[torch.Tensor],
                  launch: Callable[[torch.Tensor], Callable[[], torch.Tensor]],
                  threshold_bytes: int,
-                 reverse: bool = False) -> List[torch.Tensor]:
-    """Reduce many tensors with one collective per fusion bucket.
+                 reverse: bool = False
+                 ) -> Callable[[], List[torch.Tensor]]:
+    """Start one collective per fusion bucket of `tensors`.
 
     `launch(flat)` starts the collective on a fused 1-D tensor and returns
-    a function that waits and gives the reduced flat tensor. Returns new
-    tensors of the inputs' shapes and dtypes."""
+    a function that waits and gives the reduced flat tensor. Returns a
+    function that waits on every bucket and gives new tensors of the
+    inputs' shapes and dtypes."""
     plan = plan_buckets([(tuple(t.shape), t.dtype) for t in tensors],
                         threshold_bytes, reverse=reverse)
     waits = [(b, launch(pack(b, tensors))) for b in plan]
-    outs = [torch.empty(t.shape, dtype=t.dtype, device=t.device)
-            for t in tensors]
-    flat_outs = [o.view(-1) for o in outs]
-    for b, wait in waits:
-        unpack(b, wait(), flat_outs)
-    return outs
+
+    def finish() -> List[torch.Tensor]:
+        outs = [torch.empty(t.shape, dtype=t.dtype, device=t.device)
+                for t in tensors]
+        flat_outs = [o.view(-1) for o in outs]
+        for b, wait in waits:
+            unpack(b, wait(), flat_outs)
+        return outs
+
+    return finish
+

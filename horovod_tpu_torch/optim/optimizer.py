@@ -13,7 +13,9 @@ backward-production order while the backward pass runs. `step()` waits
 on every bucket, divides by size() for Average in the wire dtype, copies
 the result back into each `.grad` and steps the wrapped optimizer.
 
-Only backward_passes_per_step=1 is ported.
+Only backward_passes_per_step=1 and the ops Average and Sum are ported:
+any other op (Adasum, Min, Max, Product) raises naming ROADMAP A6 rather
+than summing.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ import torch
 import torch.distributed as dist
 
 from horovod_tpu_torch.common import types as T
+from horovod_tpu_torch.common.exceptions import HorovodError
 from horovod_tpu_torch.core import topology
 from horovod_tpu_torch.ops import collectives, fusion
 from horovod_tpu_torch.ops.compression import Compression
@@ -40,8 +43,13 @@ class DistributedOptimizer:
         if backward_passes_per_step != 1:
             raise NotImplementedError(
                 "backward_passes_per_step > 1 is not ported yet")
+        self.op = T.normalize_reduce_op(op)
+        if self.op not in (T.Average, T.Sum):
+            raise HorovodError(
+                f"DistributedOptimizer(op={self.op.name}): only Average and "
+                f"Sum are ported; the optimizer's other ops come with "
+                f"ROADMAP A6")
         self.opt = optimizer
-        self.op = T.ReduceOp(op)
         self.compression = compression
         params = [p for g in optimizer.param_groups for p in g["params"]
                   if p.requires_grad]

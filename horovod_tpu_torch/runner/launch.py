@@ -17,8 +17,8 @@ Usage:
 
 Not ported yet, and refused with a HorovodError naming the ROADMAP item
 rather than ignored: elastic mode (--host-discovery-script and its
-flags, A10), the timeline (A8), the autotuner (A9), hierarchical
-collectives (A4) and the stall inspector (A13). The native KV server
+flags, A10), the timeline (A8), the autotuner (A9) and the stall
+inspector (A13). The native KV server
 and the job-end persistence of flight-recorder, perfscope, watch and
 trace records (A13, A8) are left out: they serve subsystems the port
 does not have yet. The launcher does not narrow CUDA_VISIBLE_DEVICES:
@@ -102,12 +102,14 @@ def build_parser() -> argparse.ArgumentParser:
     hier.add_argument("--hierarchical-allreduce", dest="hier_allreduce",
                       action="store_true", default=None,
                       help="local x cross hierarchical allreduce "
-                           "(not ported yet: ROADMAP A4)")
+                           "(HOROVOD_HIERARCHICAL_ALLREDUCE)")
     hier.add_argument("--no-hierarchical-allreduce", dest="hier_allreduce",
                       action="store_false")
     hag = p.add_mutually_exclusive_group()
     hag.add_argument("--hierarchical-allgather", dest="hier_allgather",
-                     action="store_true", default=None)
+                     action="store_true", default=None,
+                     help="local then cross allgather "
+                          "(HOROVOD_HIERARCHICAL_ALLGATHER)")
     hag.add_argument("--no-hierarchical-allgather", dest="hier_allgather",
                      action="store_false")
     p.add_argument("--timeline-filename", default=None,
@@ -260,8 +262,6 @@ def unported_flags(args: argparse.Namespace) -> List[str]:
          args.autotune_bayes_opt_max_samples is not None, "A9"),
         ("--autotune-gaussian-process-noise",
          args.autotune_gaussian_process_noise is not None, "A9"),
-        ("--hierarchical-allreduce", args.hier_allreduce is True, "A4"),
-        ("--hierarchical-allgather", args.hier_allgather is True, "A4"),
         ("--stall-check", args.no_stall_check is False, "A13"),
         ("--stall-check-warning-time-seconds",
          args.stall_check_warning_time_seconds is not None, "A13"),

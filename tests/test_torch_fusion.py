@@ -67,8 +67,8 @@ def test_fused_reduce_reassembles_chunks():
     ts = [torch.from_numpy(rng.standard_normal(n).astype(np.float32))
           for n in (5, 300000, 7, 600000)]
     ts.append(torch.ones(3, 4, dtype=torch.bfloat16))
-    out = tfusion.fused_reduce(ts, lambda flat: (lambda: flat), MB // 2,
-                               reverse=True)
+    out = tfusion.fused_launch(ts, lambda flat: (lambda: flat), MB // 2,
+                               reverse=True)()
     for a, b in zip(ts, out):
         assert a.dtype == b.dtype and a.shape == b.shape
         assert torch.equal(a, b)

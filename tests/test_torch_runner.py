@@ -438,8 +438,6 @@ def test_worker_env_names_match_jax():
     (["--timeline-filename", "/tmp/t.json"], "A8"),
     (["--autotune"], "A9"),
     (["--autotune-warmup-samples", "3"], "A9"),
-    (["--hierarchical-allreduce"], "A4"),
-    (["--hierarchical-allgather"], "A4"),
     (["--stall-check"], "A13"),
     (["--stall-check-warning-time-seconds", "5"], "A13"),
 ])
@@ -448,6 +446,26 @@ def test_unported_flags_raise_naming_their_item(flags, item):
         with pytest.raises(HorovodError, match=f"ROADMAP {item}"):
             tlaunch.run_commandline(["-np", "1", *flags, "--", "true"])
     assert not ls.called
+
+
+@pytest.mark.parametrize("flag,knob", [
+    ("--hierarchical-allreduce", TC.HOROVOD_HIERARCHICAL_ALLREDUCE),
+    ("--hierarchical-allgather", TC.HOROVOD_HIERARCHICAL_ALLGATHER),
+])
+def test_hierarchical_flags_set_the_worker_env(flag, knob):
+    """Each hierarchical flag reaches the workers as its knob set to 1,
+    as the JAX launcher maps it."""
+    seen = {}
+
+    def fake(np, hosts, command, env, **kw):
+        seen.update(env=env)
+        return 0
+
+    with mock.patch.object(tlaunch, "launch_static", fake):
+        assert tlaunch.run_commandline(
+            ["-np", "2", flag, "--", "python", "t.py"]) == 0
+    assert seen["env"][knob] == "1"
+    assert knob == getattr(JC, knob)
 
 
 def test_ported_flags_reach_launch_static():
