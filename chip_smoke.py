@@ -75,6 +75,32 @@ Phases, each fatal on failure:
      HOROVOD_TPU_MESH_SHAPE=2x2 at 4) and prints the bus GB/s of the flat
      and hierarchical allreduce, allgather and alltoall; with one card it
      says so and checks nothing more.
+  8. the training API — hvd.init() on NCCL, ResNet-50 at full width
+     (224², bf16, batch 32, HOROVOD_CONV_BLOCK=1, cuDNN deterministic)
+     from the seed-0 weights on one fixed batch, 3 steps of
+     DistributedOptimizer(SGD momentum 0.9) for each of op= Average
+     (twice), Sum, Adasum (per tensor, one collective per parameter),
+     Min, Max and Product, and groups=4 (the step-time path): at k = 1
+     each reduce is the identity, so each loss sequence equals
+     Average's bit for bit; gradient_predivide_factor 4 within
+     TOL_PREDIVIDE; kernels 1 and 2 launch 28 times a step on each;
+     backward_passes_per_step 2 (SGD lr 0.1): the first step() returns
+     None and moves nothing, the second moves each parameter by
+     -lr·(g1 + g2) of two gradients taken with no optimizer, within one
+     bf16 step (2^-7) of |w - lr·(g1 + g2)| and of |lr·(g1 + g2)|; fault C5 on the card
+     (broadcast_optimizer_state keeps the momentum buffers, a fresh
+     optimizer loaded from broadcast_object's copy holds them on the
+     card) and broadcast_object/allgather_object of a dict with a CUDA
+     tensor; EmbeddingBag(10000, 64, sparse=True) with a Linear head, 3
+     steps against sparse_as_dense within TOL_SPARSE; img/s of the
+     Average hook path, the grouped path, Adasum and bpps 2; then the
+     launcher with --autotune (warm-up 1, 2 steps a sample, 3 samples)
+     and with HOROVOD_BUCKET_AUTOTUNE=1 (interval 2) runs the synthetic
+     benchmark until each tuner freezes, printing its samples or
+     decisions, every loss finite. With two or more cards a world of
+     min(4, count) through `runner.run` holds every op against numpy,
+     join over uneven loops and one tuner decision on every rank
+     (horovod_tpu_torch/optim/world_check.py); with one card it says so.
 Then the `kernels` JSON line, the card's name and power limit, and last
 {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
 
@@ -115,6 +141,11 @@ TOL_LOSS = 2e-2             # fused vs unfused step loss, relative (bf16
 # through 50 layers of random weights.
 TOL_TF32 = 2.0 ** -9        # f32 y, dx, dW: max|Δ| / max|ref|
 TOL_LOSS_F32 = 1e-2         # f32 block vs unfused step loss, relative
+TOL_PREDIVIDE = 2.0 ** -8   # phase 8: each loss with predivide 4 vs
+                            # Average, relative (one bf16 step; /4 and
+                            # x4 are exact in bf16 but for underflow)
+TOL_SPARSE = 1e-6           # phase 8: sparse vs sparse_as_dense f32
+                            # weights after 3 steps, of the largest
 # Flash kernels against their plain versions (full f32 scores), o, dk,
 # dv and dq each held tile by tile: every 64-row tile (what one kernel
 # block writes) must satisfy ‖Δ_tile‖ ≤ tol·‖ref_tile‖, so an error in
@@ -1205,6 +1236,297 @@ def collectives_path():
     return out
 
 
+def _launched(cmd, env, timeout=600):
+    """Run a launcher command; its rank 0's stdout lines."""
+    rc, text = run_bounded(cmd, timeout, env=dict(os.environ, **env))
+    lines = [ln[len("[0]<stdout>: "):] for ln in text.splitlines()
+             if ln.startswith("[0]<stdout>: ")]
+    need(rc == 0, f"{' '.join(cmd[:6])}... exited {rc}:\n{text[-3000:]}")
+    need("All losses finite: True" in lines,
+         "a launched step's loss was not finite")
+    return lines
+
+
+def autotune_runs():
+    """The synthetic benchmark through the launcher under each tuner."""
+    py = sys.executable
+    bench = ["--", py, "-m", "horovod_tpu_torch.synthetic_benchmark",
+             "--batch-size", "32", "--num-warmup-batches", "2",
+             "--num-batches-per-iter", "5", "--num-iters", "6"]
+    block_env = {"HOROVOD_CONV_BLOCK": "1", "HOROVOD_FUSE_CONV_BN": "0"}
+    out = {}
+    t0 = time.perf_counter()
+    lines = _launched([py, "-m", "horovod_tpu_torch.runner.launch", "-np",
+                       "1", "--autotune", "--autotune-warmup-samples", "1",
+                       "--autotune-steps-per-sample", "2",
+                       "--autotune-bayes-opt-max-samples", "3"] + bench,
+                      block_env)
+    samples = [ln for ln in lines if ln.startswith("Autotune sample:")]
+    frozen = [ln for ln in lines if ln.startswith("Autotune frozen:")]
+    for ln in samples + frozen:
+        print(f"autotune: {ln}")
+    need(len(samples) == 5, f"{len(samples)} scored samples, not 3 + the "
+         f"two playoff windows")
+    need(len(frozen) == 1, "the ParameterManager did not freeze")
+    out["autotune"] = dict(samples=samples, frozen=frozen[0],
+                           seconds=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    lines = _launched([py, "-m", "horovod_tpu_torch.runner.launch", "-np",
+                       "1"] + bench, dict(block_env,
+                                          HOROVOD_BUCKET_AUTOTUNE="1",
+                                          HOROVOD_BUCKET_AUTOTUNE_INTERVAL="2"))
+    decisions = [ln for ln in lines if ln.startswith(
+        "Bucket autotune decision")]
+    frozen = [ln for ln in lines if ln.startswith("Bucket autotune frozen:")]
+    for ln in decisions + frozen:
+        print(f"bucket autotune: {ln}")
+    need(len(frozen) == 1, "the OnlineBucketTuner did not freeze")
+    out["bucket_autotune"] = dict(decisions=decisions, frozen=frozen[0],
+                                  seconds=time.perf_counter() - t0)
+    return out
+
+
+def training_api_path(steps=3, timed=10):
+    """Phase 8: the rest of DistributedOptimizer, the object helpers and
+    the tuners on the ResNet-50 main path (one card); with two or more,
+    the numpy checks of a world of min(4, count)."""
+    import functools
+    import torch
+    import torch.distributed as dist
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import runner
+    from horovod_tpu_torch import synthetic_benchmark as sb
+    from horovod_tpu_torch.models import resnet
+    from horovod_tpu_torch.optim import world_check
+
+    os.environ["HOROVOD_CONV_BLOCK"] = "1"
+    os.environ["HOROVOD_FUSE_CONV_BN"] = "0"
+    cudnn = torch.backends.cudnn
+    saved = (cudnn.deterministic, cudnn.benchmark)
+    cudnn.deterministic, cudnn.benchmark = True, False
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+    out = {"card": smi, "routes": {}}
+    hvd.init()
+    try:
+        dev, group = hvd.device(), dist.group.WORLD
+        need(dev.type == "cuda", "phase 8 is not on the card")
+        model = sb.build("resnet50", torch.bfloat16, dev)
+        data = sb.make_batch(32, 224, torch.bfloat16, dev, seed=0)
+        snap = copy.deepcopy(model.state_dict())
+        n_params = len(list(model.parameters()))
+
+        def route(name, n_timed=0, **kw):
+            model.load_state_dict(snap)
+            opt = hvd.DistributedOptimizer(
+                torch.optim.SGD(model.parameters(), lr=0.01, momentum=0.9),
+                named_parameters=model.named_parameters(), **kw)
+            reset_counters()
+            losses = [sb.train_step(model, opt, data, group)
+                      for _ in range(steps)]
+            torch.cuda.synchronize()
+            counts = read_counters()
+            losses = [float(v) for v in losses]
+            r = dict(losses=losses, hooked=opt.hooked, buckets=len(opt.plan),
+                     collectives_per_step=opt.collectives_per_step,
+                     launches={k: counts[k] for k in ("fwd", "act_bwd")})
+            need(all(math.isfinite(v) for v in losses),
+                 f"{name}: non-finite loss {losses}")
+            need(counts["fwd"] == 28 * steps and
+                 counts["act_bwd"] == 28 * steps,
+                 f"{name}: expected 28 + 28 launches a step, got {counts}")
+            if n_timed:
+                t0 = time.perf_counter()
+                for _ in range(n_timed):
+                    sb.train_step(model, opt, data, group)
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+                r.update(img_per_s=32 * n_timed / dt,
+                         step_ms=dt / n_timed * 1e3)
+            out["routes"][name] = r
+            # the next route's optimizer wraps the same parameters
+            for h in getattr(opt, "_hooks", ()):
+                h.remove()
+            rate = f", {r['img_per_s']:.1f} img/s" if n_timed else ""
+            print(f"training API: {name}: losses {losses}, "
+                  f"{'hook' if opt.hooked else 'step-time'} path, "
+                  f"{r['collectives_per_step']} collective call(s) a step"
+                  f"{rate}")
+            return opt
+
+        opt_avg = route("Average", timed)
+        need(out["routes"]["Average"]["buckets"] == 18,
+             "the Average hook path does not plan ResNet-50's 18 buckets")
+        route("Average again")
+        for op in ("Sum", "Adasum", "Min", "Max", "Product"):
+            route(op, timed if op == "Adasum" else 0, op=op)
+        route("groups=4", timed, groups=4)
+        route("predivide 4", gradient_predivide_factor=4.0)
+        avg = out["routes"]["Average"]["losses"]
+        for name in ("Average again", "Sum", "Adasum", "Min", "Max",
+                     "Product", "groups=4"):
+            got = out["routes"][name]["losses"]
+            need(got == avg, f"{name}: losses {got} differ from Average's "
+                 f"{avg} at k = 1")
+        ada = out["routes"]["Adasum"]
+        need(not ada["hooked"] and ada["collectives_per_step"] == n_params,
+             f"Adasum: {ada['collectives_per_step']} calls a step, not one "
+             f"per parameter ({n_params})")
+        need(not out["routes"]["groups=4"]["hooked"],
+             "groups=4 rode the hook path")
+        pre = out["routes"]["predivide 4"]["losses"]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(pre, avg))
+        out["predivide_rel"] = rel
+        print(f"training API: predivide 4 against Average: largest "
+              f"relative loss difference {rel:.3g} (tolerance "
+              f"{TOL_PREDIVIDE})")
+        need(rel <= TOL_PREDIVIDE, "predivide 4 disagrees with Average")
+
+        # backward_passes_per_step 2 against two gradients taken with no
+        # optimizer, from the same weights.
+        model.load_state_dict(snap)
+        params = list(model.parameters())
+        w0 = [p.detach().clone() for p in params]
+        batches = [data, sb.make_batch(32, 224, torch.bfloat16, dev,
+                                       seed=1)]
+        grads = []
+        for b in batches:
+            model.zero_grad(set_to_none=True)
+            resnet.loss_fn(model, b, train=True, group=group)[0].backward()
+            grads.append([p.grad.detach().float() for p in params])
+        model.zero_grad(set_to_none=True)
+        lr = 0.1
+        opt = hvd.DistributedOptimizer(
+            torch.optim.SGD(params, lr=lr),
+            named_parameters=model.named_parameters(),
+            backward_passes_per_step=2)
+        rets = []
+        for b in batches:
+            loss = resnet.loss_fn(model, b, train=True, group=group)[0]
+            loss.backward()
+            rets.append(opt.step(lambda: loss))
+            if len(rets) == 1:
+                need(rets[0] is None, "bpps 2: the first step() returned "
+                     "a value")
+                need(all(torch.equal(p, w) for p, w in zip(params, w0)),
+                     "bpps 2: the first step() moved a parameter")
+        need(rets[1] is not None, "bpps 2: the second step() applied "
+             "nothing")
+        # bf16 rounds g1 + g2 as it accumulates, then lr times it, then
+        # the update, each by at most 2^-8 of its magnitude: the
+        # tolerance is one bf16 step (2^-7) of |update| and of |w|.
+        worst = 0.0
+        for p, w, g1, g2 in zip(params, w0, *grads):
+            g = g1 + g2
+            want = w.float() - lr * g
+            tol = 2.0 ** -7 * (want.abs() + lr * g.abs()) + 1e-30
+            worst = max(worst, float(
+                ((p.detach().float() - want).abs() / tol).max()))
+        out["bpps_worst_over_tol"] = worst
+        print(f"training API: bpps 2: first step() None, no parameter "
+              f"moved; after the second, |Δ| ≤ {worst:.3f} of the "
+              f"tolerance (one bf16 step of each term)")
+        need(worst <= 1.0, "bpps 2: the update is not -lr·(g1 + g2)")
+        n_timed = 2 * timed
+        t0 = time.perf_counter()
+        for i in range(n_timed):
+            if i % 2 == 0:
+                opt.zero_grad()
+            loss, stats = resnet.loss_fn(model, data, train=True,
+                                         group=group)
+            loss.backward()
+            opt.step()
+            model.set_stats(stats)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        out["routes"]["bpps 2"] = dict(img_per_s=32 * n_timed / dt,
+                                       pass_ms=dt / n_timed * 1e3)
+        print(f"training API: bpps 2: {32 * n_timed / dt:.1f} img/s")
+
+        # Fault C5 on the card, and the object helpers.
+        state = {id(p): s["momentum_buffer"].clone()
+                 for p, s in opt_avg.state.items()}
+        need(len(state) == n_params, "the Average route holds no momentum")
+        hvd.broadcast_optimizer_state(opt_avg)
+        fresh = torch.optim.SGD(model.parameters(), lr=0.01, momentum=0.9)
+        fresh.load_state_dict(hvd.broadcast_object(opt_avg.state_dict()))
+        for o in (opt_avg, fresh):
+            need(len(o.state) == n_params, "C5: state entries lost")
+            for p, s in o.state.items():
+                buf = s["momentum_buffer"]
+                need(buf.device == p.device and
+                     torch.equal(buf, state[id(p)]),
+                     "C5: a momentum buffer differs or left the card")
+        obj = {"t": torch.arange(7, device=dev), "tag": "phase 8"}
+        got = hvd.broadcast_object(obj)
+        gathered = hvd.allgather_object(obj)
+        need(got["t"].is_cuda and torch.equal(got["t"], obj["t"])
+             and len(gathered) == 1 and torch.equal(gathered[0]["t"],
+                                                    obj["t"]),
+             "broadcast_object/allgather_object did not round-trip")
+        print(f"training API: C5: {n_params} momentum buffers equal on the "
+              f"card after broadcast_optimizer_state and in a fresh "
+              f"optimizer; object round trips with a CUDA tensor equal")
+
+        # A sparse gradient against sparse_as_dense.
+        g = torch.Generator(device=dev).manual_seed(0)
+        idx = torch.randint(0, 10000, (32 * 20,), generator=g, device=dev)
+        offsets = torch.arange(0, 32 * 20, 20, device=dev)
+        labels = torch.randint(0, 10, (32,), generator=g, device=dev)
+        w_emb = torch.randn(10000, 64, generator=g, device=dev) * 0.1
+        w_head = torch.randn(10, 64, generator=g, device=dev) * 0.1
+        final = {}
+        for dense in (False, True):
+            emb = torch.nn.EmbeddingBag(10000, 64, sparse=True, device=dev)
+            head = torch.nn.Linear(64, 10, device=dev)
+            with torch.no_grad():
+                emb.weight.copy_(w_emb)
+                head.weight.copy_(w_head)
+                head.bias.zero_()
+            sopt = hvd.DistributedOptimizer(
+                torch.optim.SGD([emb.weight, head.weight, head.bias],
+                                lr=0.1), sparse_as_dense=dense)
+            for _ in range(3):
+                sopt.zero_grad()
+                torch.nn.functional.cross_entropy(
+                    head(emb(idx, offsets)), labels).backward()
+                need(dense or emb.weight.grad.is_sparse,
+                     "the embedding's gradient is not sparse")
+                sopt.step()
+            final[dense] = [emb.weight.detach(), head.weight.detach()]
+        err = max(float((a - b).abs().max() / b.abs().max())
+                  for a, b in zip(final[False], final[True]))
+        out["sparse_rel"] = err
+        print(f"training API: EmbeddingBag(10000, 64, sparse=True), 3 "
+              f"steps: sparse against sparse_as_dense {err:.3g} of the "
+              f"largest weight (tolerance {TOL_SPARSE})")
+        need(err <= TOL_SPARSE, "sparse and sparse_as_dense disagree")
+    finally:
+        hvd.shutdown()
+        cudnn.deterministic, cudnn.benchmark = saved
+    rates = {k: round(r["img_per_s"], 1) for k, r in out["routes"].items()
+             if "img_per_s" in r}
+    print(f"training API: img/s {rates} on {smi}")
+
+    out.update(autotune_runs())
+    n = min(4, torch.cuda.device_count())
+    if n < 2:
+        print("training API: the multi-rank checks need at least two "
+              "cards; 1 is present")
+        return out
+    res = runner.run(functools.partial(world_check.worker, None), np=n,
+                     timeout=600)
+    need(all(r["size"] == n for r in res) and
+         all(r["tuner"] == res[0]["tuner"] for r in res),
+         f"the {n}-rank world disagrees: {res}")
+    out[f"world_{n}"] = res[0]
+    print(f"training API: {n} ranks: every op against numpy "
+          f"{ {k: v['max_abs_err'] for k, v in res[0]['ops'].items()} }, "
+          f"join {res[0]['join']}, tuner {res[0]['tuner']}")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1268,6 +1590,8 @@ def main() -> int:
     lap("6 launcher")
     collectives = collectives_path()
     lap("7 collectives")
+    training = training_api_path()
+    lap("8 training API")
     print(f"total: {time.perf_counter() - t0:.1f} s")
 
     src = "horovod_tpu_torch/csrc/"
@@ -1310,6 +1634,7 @@ def main() -> int:
                    "flash_checks": flash_checks, "main_path": path,
                    "lm_path": lm, "launched_path": launched,
                    "collectives_path": collectives,
+                   "training_api_path": training,
                    "phase_s": phase_s,
                    "nvidia_smi": smi}, f, indent=1)
     print(json.dumps(line))

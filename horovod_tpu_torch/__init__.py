@@ -9,9 +9,13 @@ for the eager collectives (allreduce with Average, Sum, Min, Max,
 Product and Adasum, allgather, reducescatter, alltoall, broadcast),
 `hvd.broadcast_parameters` syncs the start,
 and `hvd.DistributedOptimizer` all-reduces the gradients in buckets
-launched during the backward pass. The ResNet's fused 1x1-conv +
-BatchNorm (+ReLU) sites run hand-written CUDA kernels built from
-`csrc/` at first use. The package imports neither JAX nor horovod_tpu.
+launched during the backward pass (or at the step: groups, Adasum,
+sparse gradients), fed to the online tuners of the fusion threshold
+under HOROVOD_AUTOTUNE or HOROVOD_BUCKET_AUTOTUNE. `hvd.join`,
+`broadcast_object`, `allgather_object` and the training callbacks
+(`horovod_tpu_torch.optim.callbacks`) complete the training API. The
+ResNet's fused 1x1-conv + BatchNorm (+ReLU) sites run hand-written CUDA
+kernels built from `csrc/` at first use. The package imports neither JAX nor horovod_tpu.
 """
 
 from horovod_tpu_torch.common.types import (  # noqa: F401
@@ -25,6 +29,7 @@ from horovod_tpu_torch.core.topology import (  # noqa: F401
     cross_rank, cross_size, device, init, is_homogeneous, is_initialized,
     local_rank, local_size, rank, shutdown, size,
 )
+from horovod_tpu_torch.core.join import join, join_steps  # noqa: F401
 from horovod_tpu_torch.core.process_sets import (  # noqa: F401
     ProcessSet, add_process_set, axis_process_set, get_process_set,
     global_process_set, remove_process_set,
@@ -34,14 +39,16 @@ from horovod_tpu_torch.ops.collectives import (  # noqa: F401
     alltoall, alltoall_async, barrier, broadcast, broadcast_async,
     bucketed_allreduce, bucketed_allreduce_async, grouped_allgather,
     grouped_allreduce, grouped_allreduce_async, grouped_reducescatter,
-    poll, reducescatter, reducescatter_async, synchronize,
+    poll, reducescatter, reducescatter_async, sparse_allreduce,
+    sparse_allreduce_async, synchronize,
 )
 from horovod_tpu_torch.ops.compression import Compression  # noqa: F401
 from horovod_tpu_torch.optim.optimizer import (  # noqa: F401
     DistributedOptimizer,
 )
 from horovod_tpu_torch.optim.functions import (  # noqa: F401
-    broadcast_optimizer_state, broadcast_parameters,
+    allgather_object, broadcast_object, broadcast_optimizer_state,
+    broadcast_parameters,
 )
 
 __version__ = "0.1.0"

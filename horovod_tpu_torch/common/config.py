@@ -4,6 +4,8 @@ A copy of the part of horovod_tpu/common/config.py that the port reads:
 the fusion threshold, the bucket cap and order, the collectives' modes
 (hierarchical allreduce and allgather, the two-level split of
 HOROVOD_TPU_MESH_SHAPE, Adasum's vector halving, dynamic process sets),
+the two online tuners (HOROVOD_AUTOTUNE*, HOROVOD_BUCKET_AUTOTUNE*;
+core/autotune.py),
 and every knob the launcher writes (`runner/launch.py args_to_env`) or
 reads to place and join the workers (rank, size, local and cross
 topology, rendezvous, controller, the MPI rank indirection). The knob
@@ -38,6 +40,10 @@ HOROVOD_BUCKET_CAP = "HOROVOD_BUCKET_CAP"
 HOROVOD_BUCKET_REVERSE = "HOROVOD_BUCKET_REVERSE"
 HOROVOD_DYNAMIC_PROCESS_SETS = "HOROVOD_DYNAMIC_PROCESS_SETS"
 HOROVOD_ADASUM_HALVING = "HOROVOD_ADASUM_HALVING"
+HOROVOD_BUCKET_AUTOTUNE = "HOROVOD_BUCKET_AUTOTUNE"
+HOROVOD_BUCKET_AUTOTUNE_INTERVAL = "HOROVOD_BUCKET_AUTOTUNE_INTERVAL"
+HOROVOD_BUCKET_AUTOTUNE_MAX_ADJUSTMENTS = \
+    "HOROVOD_BUCKET_AUTOTUNE_MAX_ADJUSTMENTS"
 # The two-level split as "dcn:A,ici:B" or "AxB": dcn is the cross level,
 # ici the local one (core/topology.py).
 HOROVOD_TPU_MESH_SHAPE = "HOROVOD_TPU_MESH_SHAPE"
@@ -123,6 +129,17 @@ class Config:
     hierarchical_allgather: bool = False
     dynamic_process_sets: bool = False
     mesh_shape: str = ""
+    # The online tuners (core/autotune.py): the GP search, and the
+    # per-bucket tuner, which the JAX package runs on its bucket pipeline.
+    autotune: bool = False
+    autotune_log: str = ""
+    autotune_warmup_samples: int = 3
+    autotune_steps_per_sample: int = 10
+    autotune_bayes_opt_max_samples: int = 20
+    autotune_gaussian_process_noise: float = 0.8
+    bucket_autotune: bool = False
+    bucket_autotune_interval: int = 20
+    bucket_autotune_max_adjustments: int = 4
 
     # Topology (launcher-injected); None where the env does not say.
     rank: Optional[int] = None
@@ -151,6 +168,21 @@ class Config:
             hierarchical_allgather=_env_bool(HOROVOD_HIERARCHICAL_ALLGATHER),
             dynamic_process_sets=_env_bool(HOROVOD_DYNAMIC_PROCESS_SETS),
             mesh_shape=os.environ.get(HOROVOD_TPU_MESH_SHAPE, ""),
+            autotune=_env_bool(HOROVOD_AUTOTUNE),
+            autotune_log=os.environ.get(HOROVOD_AUTOTUNE_LOG, ""),
+            autotune_warmup_samples=_env_int(
+                HOROVOD_AUTOTUNE_WARMUP_SAMPLES, 3),
+            autotune_steps_per_sample=_env_int(
+                HOROVOD_AUTOTUNE_STEPS_PER_SAMPLE, 10),
+            autotune_bayes_opt_max_samples=_env_int(
+                HOROVOD_AUTOTUNE_BAYES_OPT_MAX_SAMPLES, 20),
+            autotune_gaussian_process_noise=_env_float(
+                HOROVOD_AUTOTUNE_GAUSSIAN_PROCESS_NOISE, 0.8),
+            bucket_autotune=_env_bool(HOROVOD_BUCKET_AUTOTUNE),
+            bucket_autotune_interval=_env_int(
+                HOROVOD_BUCKET_AUTOTUNE_INTERVAL, 20),
+            bucket_autotune_max_adjustments=_env_int(
+                HOROVOD_BUCKET_AUTOTUNE_MAX_ADJUSTMENTS, 4),
             rank=_env_or_mpi(HOROVOD_RANK, HOROVOD_MPI_RANK_ENV),
             size=_opt_int(HOROVOD_SIZE),
             local_rank=_env_or_mpi(HOROVOD_LOCAL_RANK,

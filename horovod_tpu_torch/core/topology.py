@@ -29,7 +29,10 @@ or "AxB") overrides the split as the JAX package reshapes its mesh to
 init builds one local group per cross index and one cross group per
 local index, in rank order (ops/collectives.py uses them for the global
 set). `init(process_sets=[...])` registers sets beyond the global one
-(core/process_sets.py).
+(core/process_sets.py). Under HOROVOD_AUTOTUNE init builds the
+ParameterManager, else under HOROVOD_BUCKET_AUTOTUNE the
+OnlineBucketTuner (core/autotune.py): both move the fusion threshold,
+so at most one runs; shutdown drops it.
 """
 
 from __future__ import annotations
@@ -64,6 +67,9 @@ class _State:
     rendezvous: str = ""  # where the world met, e.g. "tcp://10.0.0.1:2345"
     hier: Optional["Hier"] = None  # hierarchical mode's groups
     process_set_table: object = None  # core/process_sets.ProcessSetTable
+    parameter_manager: object = None  # core/autotune.ParameterManager
+    bucket_tuner: object = None  # core/autotune.OnlineBucketTuner
+    joined: bool = False  # inside hvd.join(); guarded by _lock
 
 
 @dataclasses.dataclass(frozen=True)
@@ -280,8 +286,11 @@ def init(device: Optional[str] = None,
         layout = _layout(size, (local_size, cross_rank, local_rank), dev)
         split = _split(cfg, size, layout)
         hier = None
+        # The autotuner's hierarchical knob (a mesh shape given) needs
+        # the groups as well.
         if split is not None and (cfg.hierarchical_allreduce
-                                  or cfg.hierarchical_allgather):
+                                  or cfg.hierarchical_allgather
+                                  or (cfg.autotune and cfg.mesh_shape)):
             hier = _hier_groups(*split, rank)
         _state.rank, _state.size = rank, size
         _state.local_rank, _state.local_size = local_rank, local_size
@@ -293,6 +302,11 @@ def init(device: Optional[str] = None,
         _state.rendezvous = where
         from horovod_tpu_torch.core import process_sets as ps_mod
         _state.process_set_table = ps_mod.ProcessSetTable(size)
+        from horovod_tpu_torch.core import autotune
+        if cfg.autotune:
+            _state.parameter_manager = autotune.ParameterManager(cfg)
+        elif cfg.bucket_autotune:
+            _state.bucket_tuner = autotune.OnlineBucketTuner(cfg)
         _state.initialized = True
         for ps in process_sets or ():
             _state.process_set_table.register(ps)
@@ -369,6 +383,27 @@ def device() -> torch.device:
 
 def config() -> C.Config:
     return _require().config
+
+
+def parameter_manager():
+    """The HOROVOD_AUTOTUNE tuner, or None."""
+    return _require().parameter_manager
+
+
+def bucket_tuner():
+    """The HOROVOD_BUCKET_AUTOTUNE tuner, or None."""
+    return _require().bucket_tuner
+
+
+def set_joined(flag: bool) -> None:
+    with _lock:
+        _require().joined = flag
+
+
+def joined() -> bool:
+    """True while this rank is inside hvd.join()."""
+    with _lock:
+        return _state.joined
 
 
 def rendezvous() -> str:

@@ -28,13 +28,21 @@ group and all-gather over the local group (`_apply_reduce_hier`); under
 HOROVOD_HIERARCHICAL_ALLGATHER an allgather of equal sizes gathers over
 the local group, then the cross group (core/topology.py builds both).
 
-Not ported here: the consistency fingerprints and the metrics and
-instrumentation (ROADMAP A9, A13), and the stall watchdog (A13).
+A sparse tensor (`torch.sparse_coo`) reduces as the JAX package's torch
+frontend does (`_sparse_allreduce`): allgather of its indices and
+values, a coalesced sum, Average dividing by the set's size, the scale
+factors on the values. `BucketTimer` takes each bucket's
+launch-to-completion time for the online bucket tuner (the counterpart
+of the JAX package's profiled `bucketed_allreduce`).
+
+Not ported here: the consistency fingerprints (ROADMAP A13), the
+metrics and instrumentation, and the stall watchdog (A13).
 """
 
 from __future__ import annotations
 
 import threading
+import time
 from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
@@ -246,6 +254,9 @@ def allreduce_async(tensor: torch.Tensor, average: Optional[bool] = None,
     """Start reducing `tensor` across the set; the input is untouched."""
     ps = _resolve(process_set)
     rop = _normalize_op(average, op)
+    if tensor.is_sparse:
+        return _named(name, lambda: Handle(None, sparse_allreduce(
+            tensor, rop, ps, prescale_factor, postscale_factor)))
     start = _launch(rop, prescale_factor, postscale_factor, ps)
     return _named(name, lambda: start(tensor.clone()))
 
@@ -338,6 +349,121 @@ def bucketed_allreduce(tensors: Sequence[torch.Tensor],
     return bucketed_allreduce_async(tensors, average, name, op,
                                     prescale_factor, postscale_factor,
                                     process_set).wait()
+
+
+# ------------------------------------------------------- sparse tensors
+
+def sparse_allreduce(tensor: torch.Tensor, op=T.ReduceOp.AVERAGE,
+                     process_set: Optional[ProcessSet] = None,
+                     prescale_factor: float = 1.0,
+                     postscale_factor: float = 1.0) -> torch.Tensor:
+    """Reduce a sparse COO tensor across the set: every member's indices
+    and values gathered in set order and summed where indices repeat;
+    Average divides by the set's size. Only Sum and Average are defined
+    on sparse tensors."""
+    ps = _resolve(process_set)
+    rop = T.normalize_reduce_op(op)
+    if rop not in (T.ReduceOp.SUM, T.ReduceOp.AVERAGE):
+        raise HorovodError(
+            f"a sparse tensor reduces with Sum or Average, not {rop.name}; "
+            f"pass sparse_as_dense=True to reduce it densely")
+    t = tensor.coalesce()
+    idx, val = t.indices(), t.values()
+    if prescale_factor != 1.0:
+        val = scale(val, prescale_factor)
+    all_idx = allgather(idx.t().contiguous(), process_set=ps)
+    all_val = allgather(val.contiguous(), process_set=ps)
+    out = torch.sparse_coo_tensor(all_idx.t(), all_val, size=t.shape,
+                                  check_invariants=True).coalesce()
+    factor = postscale_factor
+    if rop == T.ReduceOp.AVERAGE:
+        factor = factor / ps.size()
+    if factor != 1.0:
+        out = torch.sparse_coo_tensor(out.indices(),
+                                      scale(out.values(), factor),
+                                      size=t.shape,
+                                      check_invariants=True).coalesce()
+    return out
+
+
+def sparse_allreduce_async(tensor: torch.Tensor, name: Optional[str] = None,
+                           op=T.ReduceOp.AVERAGE,
+                           process_set: Optional[ProcessSet] = None
+                           ) -> Handle:
+    """sparse_allreduce behind the async API: it runs at the call, and
+    the handle gives the result."""
+    ps = _resolve(process_set)
+    return _named(name, lambda: Handle(None, sparse_allreduce(
+        tensor, op, ps)))
+
+
+# ------------------------------------------------- per-bucket timing
+
+_bucket_tls = threading.local()
+
+
+def last_bucket_timings() -> List[Tuple[int, float]]:
+    """(wire bytes, seconds) of each bucket of this thread's last timed
+    reduction (`BucketTimer.results`)."""
+    return list(getattr(_bucket_tls, "timings", ()))
+
+
+class BucketTimer:
+    """Each bucket's time from its launch to the completion of its
+    collective, for the online bucket tuner.
+
+    On the card the span runs from a CUDA event on the compute stream at
+    the launch (where the bucket's gradients are ready, since the
+    collective waits on that stream) to an event on a side stream that
+    waits on the collective's end: device time, including the wait
+    behind earlier buckets on the communication stream, and none of the
+    host's time until `step()`. On the host it runs from the launch to
+    the moment the library's future completes. `results()` waits for
+    every event (a device sync), so a timer is only made while a tuner
+    is live."""
+
+    def __init__(self, device: torch.device):
+        self._cuda = device.type == "cuda"
+        self._side = torch.cuda.Stream(device) if self._cuda else None
+        self._recs: List[list] = []
+
+    def launch(self, nbytes: int, start: Callable[[], Handle]) -> Handle:
+        if self._cuda:
+            t0 = torch.cuda.Event(enable_timing=True)
+            t0.record()
+            h = start()
+            t1 = torch.cuda.Event(enable_timing=True)
+            if h.work is not None:
+                with torch.cuda.stream(self._side):
+                    h.work.wait()
+                    t1.record()
+            else:
+                t1.record()
+            self._recs.append([nbytes, t0, t1])
+            return h
+        rec = [nbytes, time.perf_counter(), None]
+        h = start()
+        fut = h.work.get_future() if h.work is not None else None
+        if fut is None:
+            rec[2] = time.perf_counter()
+        else:
+            fut.add_done_callback(
+                lambda _f: rec.__setitem__(2, time.perf_counter()))
+        self._recs.append(rec)
+        return h
+
+    def results(self) -> List[Tuple[int, float]]:
+        """(wire bytes, seconds) per bucket, in launch order; resets."""
+        out = []
+        for nbytes, t0, t1 in self._recs:
+            if self._cuda:
+                t1.synchronize()
+                out.append((nbytes, t0.elapsed_time(t1) / 1e3))
+            elif t1 is not None:
+                out.append((nbytes, t1 - t0))
+        self._recs = []
+        _bucket_tls.timings = out
+        return out
 
 
 # ------------------------------------------------------------ allgather
@@ -596,9 +722,13 @@ def broadcast(tensor: torch.Tensor, root_rank: int,
     return broadcast_async(tensor, root_rank, name, process_set).wait()
 
 
-def broadcast_(tensor: torch.Tensor, root_rank: int) -> torch.Tensor:
-    """In-place broadcast of `tensor` from the root rank."""
-    dist.broadcast(tensor, src=root_rank)
+def broadcast_(tensor: torch.Tensor, root_rank: int,
+               process_set: Optional[ProcessSet] = None) -> torch.Tensor:
+    """In-place broadcast of `tensor` from the root rank (a global rank,
+    a member of the set)."""
+    ps = _resolve(process_set)
+    ps.rank_index(root_rank)
+    dist.broadcast(tensor, src=root_rank, group=ps.group)
     return tensor
 
 

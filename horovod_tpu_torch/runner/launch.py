@@ -17,8 +17,9 @@ Usage:
 
 Not ported yet, and refused with a HorovodError naming the ROADMAP item
 rather than ignored: elastic mode (--host-discovery-script and its
-flags, A10), the timeline (A8), the autotuner (A9) and the stall
-inspector (A13). The native KV server
+flags, A10), the timeline (A8) and the stall inspector (A13). The
+--autotune flags set the HOROVOD_AUTOTUNE* knobs that the workers'
+ParameterManager reads (core/autotune.py). The native KV server
 and the job-end persistence of flight-recorder, perfscope, watch and
 trace records (A13, A8) are left out: they serve subsystems the port
 does not have yet. The launcher does not narrow CUDA_VISIBLE_DEVICES:
@@ -116,8 +117,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Chrome-trace timeline path (HOROVOD_TIMELINE; "
                         "not ported yet: ROADMAP A8)")
     p.add_argument("--timeline-mark-cycles", action="store_true")
-    p.add_argument("--autotune", action="store_true",
-                   help="not ported yet: ROADMAP A9")
+    p.add_argument("--autotune", action="store_true")
     p.add_argument("--autotune-log-file", default=None)
     p.add_argument("--autotune-warmup-samples", type=int, default=None)
     p.add_argument("--autotune-steps-per-sample", type=int, default=None)
@@ -252,16 +252,6 @@ def unported_flags(args: argparse.Namespace) -> List[str]:
         ("--start-timeout", args.start_timeout != 600, "A10"),
         ("--timeline-filename", args.timeline_filename, "A8"),
         ("--timeline-mark-cycles", args.timeline_mark_cycles, "A8"),
-        ("--autotune", args.autotune, "A9"),
-        ("--autotune-log-file", args.autotune_log_file, "A9"),
-        ("--autotune-warmup-samples",
-         args.autotune_warmup_samples is not None, "A9"),
-        ("--autotune-steps-per-sample",
-         args.autotune_steps_per_sample is not None, "A9"),
-        ("--autotune-bayes-opt-max-samples",
-         args.autotune_bayes_opt_max_samples is not None, "A9"),
-        ("--autotune-gaussian-process-noise",
-         args.autotune_gaussian_process_noise is not None, "A9"),
         ("--stall-check", args.no_stall_check is False, "A13"),
         ("--stall-check-warning-time-seconds",
          args.stall_check_warning_time_seconds is not None, "A13"),

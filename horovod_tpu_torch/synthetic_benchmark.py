@@ -18,7 +18,11 @@ keys:
 
 The flags are the JAX benchmark's, plus --device (cuda, or cpu for gloo
 on the host; N is then bounded by nothing but the caller). Only the
-ResNets are ported.
+ResNets are ported. Under the launcher's --autotune flags (or
+HOROVOD_BUCKET_AUTOTUNE=1), rank 0 prints each tuner sample or
+decision, with the buckets a step that its threshold plans, and the
+frozen choice; the last line before the rate says whether every step's
+loss was finite.
 """
 
 from __future__ import annotations
@@ -124,20 +128,49 @@ def run_bench(args, quiet: bool = False) -> float:
               f"{k} rank(s), dtype {args.dtype}, {_device_name(dev)}")
         print(f"World: {k} rank(s) joined over {topology.rendezvous()} "
               f"({dist.get_backend()})")
-    for _ in range(args.num_warmup_batches):
-        loss = train_step(model, opt, batch, group)
-    loss.item()
+    losses = [train_step(model, opt, batch, group)
+              for _ in range(args.num_warmup_batches)]
+    finite = bool(torch.stack(losses).isfinite().all()) if losses else True
     rates = []
     for it in range(args.num_iters):
         t0 = time.perf_counter()
-        for _ in range(args.num_batches_per_iter):
-            loss = train_step(model, opt, batch, group)
-        loss.item()  # host readback waits for the device
+        losses = [train_step(model, opt, batch, group)
+                  for _ in range(args.num_batches_per_iter)]
+        # the host readback waits for the device
+        finite &= bool(torch.stack(losses).isfinite().all())
         dt = time.perf_counter() - t0
         rates.append(args.batch_size * k * args.num_batches_per_iter / dt)
         if not quiet and hvd.rank() == 0:
-            print(f"Iter #{it}: {rates[-1]:.1f} img/sec total")
+            print(f"Iter #{it}: {rates[-1]:.1f} img/sec total, loss "
+                  f"{losses[-1].item():.4f}")
+    if not quiet and hvd.rank() == 0:
+        report_tuners(opt)
+        print(f"All losses finite: {finite}")
     return sum(rates) / len(rates)
+
+
+def report_tuners(opt) -> None:
+    """Print the live tuner's samples or decisions and its choice."""
+    pm, bt = topology.parameter_manager(), topology.bucket_tuner()
+    cfg = topology.config()
+    if pm is not None:
+        for vals, score in pm.samples:
+            t = vals["fusion_threshold"]
+            print(f"Autotune sample: threshold {t} bytes, "
+                  f"{opt.buckets_at(t)} buckets/step, score {score:.6g} "
+                  f"bytes/s")
+        state = "frozen" if pm.frozen else "not frozen"
+        print(f"Autotune {state}: {pm.frozen_choice()}, "
+              f"{len(opt.plan)} buckets/step")
+    if bt is not None:
+        for step, new_t, freeze in bt.decisions:
+            move = "keep" if new_t is None else f"move to {new_t} bytes"
+            print(f"Bucket autotune decision at step {step}: {move}"
+                  f"{', freeze' if freeze else ''}")
+        state = "frozen" if bt.frozen else "not frozen"
+        print(f"Bucket autotune {state}: threshold "
+              f"{cfg.fusion_threshold_bytes} bytes, {len(opt.plan)} "
+              f"buckets/step, {bt.adjustments} adjustment(s)")
 
 
 def bench_world(argv) -> float:

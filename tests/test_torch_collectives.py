@@ -40,7 +40,6 @@ import torch_collectives_worker as W
 from horovod_tpu.common import types as JT
 from horovod_tpu.ops import adasum as jadasum
 from horovod_tpu.ops import collectives as jcoll
-from horovod_tpu_torch.common.exceptions import HorovodError
 from horovod_tpu_torch.optim.optimizer import DistributedOptimizer
 import horovod_tpu_torch as hvd
 
@@ -423,11 +422,24 @@ def test_hierarchical_allgather(hier, inputs):
 
 @pytest.mark.parametrize("op", [hvd.Adasum, hvd.Min, hvd.Max, hvd.Product])
 def test_optimizer_refuses_unported_ops(op):
-    """op=hvd.Adasum must never silently sum (ROADMAP A6)."""
-    model = torch.nn.Linear(2, 2)
-    with pytest.raises(HorovodError, match="ROADMAP A6"):
-        DistributedOptimizer(torch.optim.SGD(model.parameters(), lr=0.1),
-                             op=op)
+    """The optimizer once refused these ops; now it takes each and never
+    silently sums: Adasum reduces tensor by tensor at the step (its dots
+    are per tensor), Min, Max and Product ride the buckets. In a world
+    of one each reduce gives the gradient back, bit for bit."""
+    hvd.init(device="cpu")
+    try:
+        model = torch.nn.Linear(2, 2)
+        opt = DistributedOptimizer(
+            torch.optim.SGD(model.parameters(), lr=0.1), op=op)
+        assert opt.op == op and opt.hooked == (op != hvd.Adasum)
+        model(torch.ones(3, 2)).pow(2).sum().backward()
+        want = [p.grad.clone() for p in model.parameters()]
+        opt.synchronize()
+        for p, w in zip(model.parameters(), want):
+            assert torch.equal(p.grad, w)
+        assert opt.collectives_per_step == (2 if op == hvd.Adasum else 1)
+    finally:
+        hvd.shutdown()
 
 
 def test_reduce_op_and_dtypes_match_jax():

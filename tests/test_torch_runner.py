@@ -436,8 +436,6 @@ def test_worker_env_names_match_jax():
     (["--elastic-timeout", "30"], "A10"),
     (["--start-timeout", "30"], "A10"),
     (["--timeline-filename", "/tmp/t.json"], "A8"),
-    (["--autotune"], "A9"),
-    (["--autotune-warmup-samples", "3"], "A9"),
     (["--stall-check"], "A13"),
     (["--stall-check-warning-time-seconds", "5"], "A13"),
 ])
@@ -446,6 +444,44 @@ def test_unported_flags_raise_naming_their_item(flags, item):
         with pytest.raises(HorovodError, match=f"ROADMAP {item}"):
             tlaunch.run_commandline(["-np", "1", *flags, "--", "true"])
     assert not ls.called
+
+
+@pytest.mark.parametrize("flags,knob,attr,value", [
+    (["--autotune"], TC.HOROVOD_AUTOTUNE, "autotune", True),
+    (["--autotune-log-file", "/tmp/at.tsv"], TC.HOROVOD_AUTOTUNE_LOG,
+     "autotune_log", "/tmp/at.tsv"),
+    (["--autotune-warmup-samples", "1"],
+     TC.HOROVOD_AUTOTUNE_WARMUP_SAMPLES, "autotune_warmup_samples", 1),
+    (["--autotune-steps-per-sample", "2"],
+     TC.HOROVOD_AUTOTUNE_STEPS_PER_SAMPLE, "autotune_steps_per_sample", 2),
+    (["--autotune-bayes-opt-max-samples", "5"],
+     TC.HOROVOD_AUTOTUNE_BAYES_OPT_MAX_SAMPLES,
+     "autotune_bayes_opt_max_samples", 5),
+    (["--autotune-gaussian-process-noise", "0.5"],
+     TC.HOROVOD_AUTOTUNE_GAUSSIAN_PROCESS_NOISE,
+     "autotune_gaussian_process_noise", 0.5),
+])
+def test_autotune_flags_set_the_worker_env(flags, knob, attr, value):
+    """Each --autotune flag is taken (no longer refused) and reaches the
+    workers as its knob, as the JAX launcher maps it; the workers'
+    Config reads it back as the JAX package's Config does."""
+    seen = {}
+
+    def fake(np, hosts, command, env, **kw):
+        seen.update(env=env)
+        return 0
+
+    with mock.patch.object(tlaunch, "launch_static", fake):
+        assert tlaunch.run_commandline(
+            ["-np", "2", *flags, "--", "python", "t.py"]) == 0
+    jenv = jlaunch.args_to_env(
+        jlaunch.build_parser().parse_args(["-np", "2", *flags, "true"]))
+    assert seen["env"][knob] == jenv[knob]
+    assert knob == getattr(JC, knob)
+    with mock.patch.dict("os.environ", {knob: seen["env"][knob]}):
+        got = getattr(TC.Config.from_env(), attr)
+        want = getattr(JC.Config.from_env(), attr)
+    assert got == want == value
 
 
 @pytest.mark.parametrize("flag,knob", [
