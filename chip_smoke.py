@@ -101,6 +101,24 @@ Phases, each fatal on failure:
      min(4, count) through `runner.run` holds every op against numpy,
      join over uneven loops and one tuner decision on every rank
      (horovod_tpu_torch/optim/world_check.py); with one card it says so.
+  9. the input pipeline and the profilers — hvd.init() on NCCL,
+     ResNet-50 at full width (224², bf16, batch 32, HOROVOD_CONV_BLOCK=1):
+     DeviceFeed stages phase 4's batch and three more bit for bit, and 3
+     steps fed by it give the losses of 3 steps fed by `.to(device)`, bit
+     for bit under cuDNN deterministic; perfscope over 10 implicit steps
+     of the hook path (kernels 1 and 2 launched 28 times a step) with a
+     prefetched feed and with a synchronous one whose source sleeps 50
+     ms a batch: coverage, comms and optimizer, input_wait under
+     MAX_INPUT_WAIT_FED and at least MIN_INPUT_WAIT_STARVED, mfu, the
+     gradient hooks off the training thread; hvd.start_timeline around 3
+     steps holds one span per bucket (18) a step, with NVTX ranges, and a
+     copy cut mid-event recovers; device_profile.profile_step's "hvd
+     kernel" category within TOL_KERNEL_CATEGORY of phase 2's kernel 1 +
+     2 times; img/s with HOROVOD_PERFSCOPE=0 against the default, in
+     turns (recorded, not gated); then `runner.launch -np 1
+     --timeline-filename` of the synthetic benchmark leaves a trace with
+     the bucket spans and rank 0's perfscope summary, which the launcher
+     persisted into HOROVOD_FLIGHT_DIR.
 Then the `kernels` JSON line, the card's name and power limit, and last
 {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
 
@@ -1527,6 +1545,281 @@ def training_api_path(steps=3, timed=10):
     return out
 
 
+# Phase 9's bars. The always-on scope's phases sum to the step's wall by
+# construction; 0.99 leaves room for float sums over ten steps and
+# nothing else. A prefetched feed's get returns a staged batch (its
+# copy ran on the side stream during the step before), so under 5% of
+# the step waits; the synchronous feed of a source that sleeps 50 ms a
+# batch parks those 50 ms of each ~100-150 ms step in input_wait.
+MIN_COVERAGE = 0.99
+MAX_INPUT_WAIT_FED = 0.05
+MIN_INPUT_WAIT_STARVED = 0.25
+SOURCE_SLEEP_S = 0.05
+# device_profile's "hvd kernel" category against phase 2's kernel 1 + 2
+# times per step: inside a step the kernels run between other kernels on
+# a cold L2, where phase 2 runs them back to back; PRs 4, 5 and 8 read
+# kernel 2 between 2.749 and 2.986 ms a step in separate calls.
+TOL_KERNEL_CATEGORY = 0.30
+
+
+def observed_path(k12_ms: float, steps: int = 10):
+    """Phase 9: the input pipeline and the profilers on the ResNet-50
+    main path (224², bf16, batch 32, block route): DeviceFeed against
+    direct copies; perfscope over `steps` steps of the hook path, fed
+    and starved; the timeline and NVTX around 3 steps; device_profile's
+    categories against kernels 1 + 2 (`k12_ms`, phase 2); the host cost
+    of the always-on scope; then the launcher with --timeline-filename
+    and HOROVOD_FLIGHT_DIR."""
+    import itertools
+    import threading
+    import torch
+    import torch.distributed as dist
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import synthetic_benchmark as sb
+    from horovod_tpu_torch.data import DeviceFeed
+    from horovod_tpu_torch.profiler import device_profile, perfscope
+    from horovod_tpu_torch.profiler import flops as F
+    from horovod_tpu_torch.profiler.timeline import recover_trace
+
+    os.environ["HOROVOD_CONV_BLOCK"] = "1"
+    os.environ["HOROVOD_FUSE_CONV_BN"] = "0"
+    out_dir = os.path.abspath(os.path.join("chiprun_out", "observe"))
+    os.makedirs(out_dir, exist_ok=True)
+    cudnn = torch.backends.cudnn
+    saved = (cudnn.deterministic, cudnn.benchmark)
+    out = {}
+    hvd.init()
+    try:
+        dev, group = hvd.device(), dist.group.WORLD
+        need(dev.type == "cuda", "phase 9 is not on the card")
+        model = sb.build("resnet50", torch.bfloat16, dev)
+        snap = copy.deepcopy(model.state_dict())
+        # Host batches: phase 4's batch (seed 0) and three more.
+        host = [tuple(t.cpu() for t in sb.make_batch(32, 224, torch.bfloat16,
+                                                     dev, seed=s))
+                for s in range(4)]
+        opts = []
+
+        def fresh_opt():
+            """The hook path from the seed-0 weights; the last
+            optimizer's hooks removed (they stack on the parameters)."""
+            for o in opts:
+                for h in o._hooks:
+                    h.remove()
+            model.load_state_dict(snap)
+            opts.append(sb.make_optimizer(model))
+            return opts[-1]
+
+        # 1. DeviceFeed against direct copies.
+        feed = DeviceFeed(iter(host))
+        staged = list(feed)
+        need(feed.close(), "the feed's producer did not exit")
+        need(len(staged) == len(host) and all(
+            b[0].device == dev and torch.equal(b[0].cpu(), h[0])
+            and torch.equal(b[1].cpu(), h[1])
+            for b, h in zip(staged, host)),
+            "a DeviceFeed batch differs from its host copy")
+        cudnn.deterministic, cudnn.benchmark = True, False
+        losses = {}
+        for how in ("direct", "feed"):
+            opt = fresh_opt()
+            batches = (DeviceFeed(iter(host[:3])) if how == "feed" else
+                       (tuple(t.to(dev) for t in h) for h in host[:3]))
+            losses[how] = [float(sb.train_step(model, opt, b, group))
+                           for b in batches]
+        cudnn.deterministic, cudnn.benchmark = saved
+        out["feed_losses"] = losses
+        print(f"observe: DeviceFeed: {len(host)} batches equal to their "
+              f"host copies on {dev}; 3 steps fed {losses['feed']}, by "
+              f".to(device) {losses['direct']}")
+        need(losses["feed"] == losses["direct"],
+             "DeviceFeed's losses differ from direct copies'")
+
+        # 2. perfscope over `steps` implicit steps of the hook path.
+        ps = hvd.perfscope()
+        need(isinstance(ps, perfscope.PerfScope), "perfscope is off")
+        opt = fresh_opt()
+        main = threading.get_ident()
+        hook_threads = set()
+        probe = next(model.parameters()).register_post_accumulate_grad_hook(
+            lambda p: hook_threads.add(threading.get_ident()))
+
+        def window(feed_depth, source):
+            feed = DeviceFeed(source, depth=feed_depth)
+            for _ in range(2):  # warm-up, outside the window
+                sb.train_step(model, opt, next(feed), group)
+            torch.cuda.synchronize()
+            ps.reset()
+            ps.set_model_flops(
+                32 * F.resnet_train_flops_per_image(50, "flops"),
+                "fallback")
+            reset_counters()
+            t0 = time.perf_counter()
+            ps.step_entry()  # step 1 starts here, not at its step()
+            for _ in range(steps):
+                sb.train_step(model, opt, next(feed), group)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            counts = read_counters()
+            feed.close()
+            s = ps.summary()
+            need(counts["fwd"] == 28 * steps
+                 and counts["act_bwd"] == 28 * steps,
+                 f"expected 28 + 28 launches a step, got {counts}")
+            need(s["steps"] == steps, f"{s['steps']} steps recorded, not "
+                 f"{steps}")
+            return s, counts, 32 * steps / dt
+
+        def sleepy():
+            for h in itertools.cycle(host):
+                time.sleep(SOURCE_SLEEP_S)
+                yield h
+
+        fed, counts, ips_fed = window(2, itertools.cycle(host))
+        starved, _, ips_starved = window(0, sleepy())
+        probe.remove()
+        for tag, s, ips in (("prefetched", fed, ips_fed),
+                            ("starved", starved, ips_starved)):
+            print(f"observe: perfscope, {tag} feed, {ips:.1f} img/s: "
+                  + json.dumps({k: s[k] for k in (
+                      "steps", "wall", "phases_s", "phase_fractions",
+                      "coverage", "dominant_phase", "mfu", "mfu_source",
+                      "comms_axes") if k in s}))
+        autograd_thread = bool(hook_threads) and main not in hook_threads
+        out.update(perfscope_fed=fed, perfscope_starved=starved,
+                   img_per_s_fed=ips_fed, img_per_s_starved=ips_starved,
+                   launches=counts, hooks_off_main_thread=autograd_thread)
+        print(f"observe: the gradient hooks ran on {len(hook_threads)} "
+              f"thread(s), not the training thread: {autograd_thread}")
+        need(autograd_thread, "the gradient hooks ran on the training "
+             "thread")
+        for tag, s in (("prefetched", fed), ("starved", starved)):
+            need(s["coverage"] >= MIN_COVERAGE,
+                 f"{tag}: coverage {s['coverage']}")
+            need(s["phases_s"].get("comms", 0) > 0
+                 and s["phases_s"].get("optimizer", 0) > 0,
+                 f"{tag}: no comms or optimizer time")
+            need("mfu" in s and s["mfu"] > 0, f"{tag}: no mfu")
+        need(fed["phase_fractions"].get("input_wait", 0.0)
+             < MAX_INPUT_WAIT_FED, "a prefetched feed waited")
+        need(starved["phase_fractions"].get("input_wait", 0.0)
+             >= MIN_INPUT_WAIT_STARVED, "the starved feed's wait is not "
+             "in input_wait")
+
+        # 3. The timeline (and NVTX) around 3 steps.
+        trace = os.path.join(out_dir, "trace.json")
+        hvd.start_timeline(trace)
+        from horovod_tpu_torch.core import topology
+        nvtx = topology.timeline()._nvtx
+        batch = tuple(t.to(dev) for t in host[0])
+        for _ in range(3):
+            sb.train_step(model, opt, batch, group)
+        torch.cuda.synchronize()
+        hvd.stop_timeline()
+        with open(trace) as f:
+            events = json.load(f)["traceEvents"]
+        want = sorted([f"bucketed_allreduce/b{i}"
+                       for i in range(len(opt.plan))] * 3)
+        got = sorted(e["args"]["tensor"] for e in events
+                     if e["ph"] == "X" and e["name"] == "ALLREDUCE"
+                     and e["args"]["tensor"].startswith(
+                         "bucketed_allreduce/b"))
+        text = open(trace).read()
+        cut = os.path.join(out_dir, "trace_cut.json")
+        with open(cut, "w") as f:
+            f.write(text[:text.rindex('{"ph"') + 20])
+        recovered = recover_trace(cut)
+        out["timeline"] = dict(events=len(events), buckets=len(opt.plan),
+                               nvtx=nvtx, recovered=len(recovered))
+        print(f"observe: timeline: {len(events)} events, "
+              f"{len(got)} ALLREDUCE spans over 3 steps of "
+              f"{len(opt.plan)} buckets, NVTX ranges {nvtx}; a copy cut "
+              f"mid-event recovers {len(recovered)} events")
+        need(len(opt.plan) == 18 and want == got,
+             "the timeline does not hold one span per bucket a step")
+        need(nvtx, "the timeline opened no NVTX ranges on the card")
+        need(len(recovered) == len(events) - 1,
+             "recover_trace lost events of the cut copy")
+
+        # 6. The host cost of the always-on scope, in turns, ahead of the
+        # device trace of 5.
+        rates = {"default": [], "off": []}
+        for tag in ("default", "off", "off", "default"):
+            if tag == "off":
+                os.environ["HOROVOD_PERFSCOPE"] = "0"
+            else:
+                os.environ.pop("HOROVOD_PERFSCOPE", None)
+            perfscope.reset_for_tests()
+            sb.train_step(model, opt, batch, group)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                sb.train_step(model, opt, batch, group)
+            torch.cuda.synchronize()
+            rates[tag].append(32 * steps / (time.perf_counter() - t0))
+        os.environ.pop("HOROVOD_PERFSCOPE", None)
+        perfscope.reset_for_tests()
+        out["scope_cost_img_per_s"] = rates
+        print(f"observe: hook path img/s with the scope on (default) "
+              f"{[round(r, 1) for r in rates['default']]}, with "
+              f"HOROVOD_PERFSCOPE=0 {[round(r, 1) for r in rates['off']]}")
+
+        # 5. device_profile on the block-route step.
+        prof = device_profile.profile_step(
+            lambda: sb.train_step(model, opt, batch, group), reps=3)
+        hvd_ms = prof.per_category.get("hvd kernel", 0.0)
+        rel = abs(hvd_ms - k12_ms) / k12_ms
+        out["device_profile"] = dict(per_category=prof.per_category,
+                                     total_ms=prof.total_ms,
+                                     top=prof.top_ops(10), hvd_ms=hvd_ms,
+                                     k12_ms=k12_ms, rel=rel)
+        print("\n".join("observe: " + ln
+                        for ln in prof.as_markdown(top=10).splitlines()))
+        print(f"observe: hvd kernel category {hvd_ms:.4f} ms a step, "
+              f"kernels 1 + 2 in phase 2 {k12_ms:.4f}: relative "
+              f"difference {rel:.3f} (tolerance {TOL_KERNEL_CATEGORY})")
+        need(rel <= TOL_KERNEL_CATEGORY, "the hvd kernel category is not "
+             "kernels 1 + 2")
+    finally:
+        cudnn.deterministic, cudnn.benchmark = saved
+        hvd.shutdown()
+    torch.cuda.empty_cache()
+
+    # 4. The launched run, after this process left its world.
+    flight = os.path.join(out_dir, "flight")
+    launched_trace = os.path.join(out_dir, "launched_trace.json")
+    py = sys.executable
+    rc, text = run_bounded(
+        [py, "-m", "horovod_tpu_torch.runner.launch", "-np", "1",
+         "--timeline-filename", launched_trace, py, "-m",
+         "horovod_tpu_torch.synthetic_benchmark", "--batch-size", "32",
+         "--num-warmup-batches", "1", "--num-batches-per-iter", "3",
+         "--num-iters", "1"], 600,
+        env=dict(os.environ, HOROVOD_FLIGHT_DIR=flight,
+                 HOROVOD_CONV_BLOCK="1", HOROVOD_FUSE_CONV_BN="0"))
+    need(rc == 0, f"the launched benchmark exited {rc}:\n{text[-3000:]}")
+    with open(launched_trace) as f:
+        spans = [e for e in json.load(f)["traceEvents"] if e["ph"] == "X"]
+    summary_path = os.path.join(flight, "perf-rank-0.r0.json")
+    need(os.path.exists(summary_path), "the launcher persisted no "
+         "perfscope summary into HOROVOD_FLIGHT_DIR")
+    with open(summary_path) as f:
+        body = json.load(f)
+    buckets = {e["args"]["tensor"] for e in spans
+               if e["args"]["tensor"].startswith("bucketed_allreduce/b")}
+    out["launched"] = dict(spans=len(spans), buckets=len(buckets),
+                           summary=body["summary"])
+    print(f"observe: launched run: trace with {len(spans)} spans "
+          f"({len(buckets)} bucket names), rank 0's summary in "
+          f"{summary_path}: {body['summary']['steps']} steps, coverage "
+          f"{body['summary']['coverage']:.4f}, dominant phase "
+          f"{body['summary']['dominant_phase']}")
+    need(len(buckets) == 18, "the launched trace lacks the bucket spans")
+    need(body["rank"] == 0 and body["summary"]["steps"] >= 4,
+         "the persisted summary does not cover the launched steps")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1592,6 +1885,8 @@ def main() -> int:
     lap("7 collectives")
     training = training_api_path()
     lap("8 training API")
+    observed = observed_path(agg["fwd"]["ms"] + agg["act_bwd"]["ms"])
+    lap("9 observed path")
     print(f"total: {time.perf_counter() - t0:.1f} s")
 
     src = "horovod_tpu_torch/csrc/"
@@ -1635,6 +1930,7 @@ def main() -> int:
                    "lm_path": lm, "launched_path": launched,
                    "collectives_path": collectives,
                    "training_api_path": training,
+                   "observed_path": observed,
                    "phase_s": phase_s,
                    "nvidia_smi": smi}, f, indent=1)
     print(json.dumps(line))

@@ -15,7 +15,13 @@ under HOROVOD_AUTOTUNE or HOROVOD_BUCKET_AUTOTUNE. `hvd.join`,
 `broadcast_object`, `allgather_object` and the training callbacks
 (`horovod_tpu_torch.optim.callbacks`) complete the training API. The
 ResNet's fused 1x1-conv + BatchNorm (+ReLU) sites run hand-written CUDA
-kernels built from `csrc/` at first use. The package imports neither JAX nor horovod_tpu.
+kernels built from `csrc/` at first use. Every step is split into
+phases by `hvd.perfscope()` (profiler/perfscope.py), every collective
+is a span on the Chrome-trace timeline (HOROVOD_TIMELINE, or
+`hvd.start_timeline`), `horovod_tpu_torch.data.DeviceFeed` stages
+batches onto the card ahead of the step, and
+`horovod_tpu_torch.profiler.device_profile` reads the device's time by
+kernel category. The package imports neither JAX nor horovod_tpu.
 """
 
 from horovod_tpu_torch.common.types import (  # noqa: F401
@@ -27,7 +33,8 @@ from horovod_tpu_torch.common.exceptions import (  # noqa: F401
 )
 from horovod_tpu_torch.core.topology import (  # noqa: F401
     cross_rank, cross_size, device, init, is_homogeneous, is_initialized,
-    local_rank, local_size, rank, shutdown, size,
+    local_rank, local_size, rank, shutdown, size, start_timeline,
+    stop_timeline,
 )
 from horovod_tpu_torch.core.join import join, join_steps  # noqa: F401
 from horovod_tpu_torch.core.process_sets import (  # noqa: F401
@@ -52,3 +59,13 @@ from horovod_tpu_torch.optim.functions import (  # noqa: F401
 )
 
 __version__ = "0.1.0"
+
+
+def perfscope():
+    """The process-wide step-phase profiler (profiler/perfscope.py):
+    delimit steps with `with hvd.perfscope().step():` and mark host
+    input waits with `.phase("input_wait")`; comms and optimizer time
+    are attributed through `DistributedOptimizer`. A no-op shell under
+    HOROVOD_PERFSCOPE=0."""
+    from horovod_tpu_torch.profiler import perfscope as _ps
+    return _ps.get()

@@ -5,7 +5,7 @@ the fusion threshold, the bucket cap and order, the collectives' modes
 (hierarchical allreduce and allgather, the two-level split of
 HOROVOD_TPU_MESH_SHAPE, Adasum's vector halving, dynamic process sets),
 the two online tuners (HOROVOD_AUTOTUNE*, HOROVOD_BUCKET_AUTOTUNE*;
-core/autotune.py),
+core/autotune.py), the timeline and the profilers' knobs (profiler/),
 and every knob the launcher writes (`runner/launch.py args_to_env`) or
 reads to place and join the workers (rank, size, local and cross
 topology, rendezvous, controller, the MPI rank indirection). The knob
@@ -25,6 +25,19 @@ HOROVOD_HIERARCHICAL_ALLREDUCE = "HOROVOD_HIERARCHICAL_ALLREDUCE"
 HOROVOD_HIERARCHICAL_ALLGATHER = "HOROVOD_HIERARCHICAL_ALLGATHER"
 HOROVOD_TIMELINE = "HOROVOD_TIMELINE"
 HOROVOD_TIMELINE_MARK_CYCLES = "HOROVOD_TIMELINE_MARK_CYCLES"
+# The step-phase profiler (profiler/perfscope.py): on unless "0", the
+# size of its rolling window, and how often a rank pushes its summary to
+# the rendezvous KV; the launcher persists the pushed summaries into
+# HOROVOD_FLIGHT_DIR at the job's end.
+HOROVOD_PERFSCOPE = "HOROVOD_PERFSCOPE"
+HOROVOD_PERFSCOPE_WINDOW = "HOROVOD_PERFSCOPE_WINDOW"
+HOROVOD_METRICS_PUSH_INTERVAL = "HOROVOD_METRICS_PUSH_INTERVAL"
+HOROVOD_FLIGHT_DIR = "HOROVOD_FLIGHT_DIR"
+# Model FLOPs (profiler/flops.py): the card's peak and memory, and the
+# gate of the counted FLOPs.
+HOROVOD_BENCH_PEAK_TFLOPS = "HOROVOD_BENCH_PEAK_TFLOPS"
+HOROVOD_BENCH_HBM_GB = "HOROVOD_BENCH_HBM_GB"
+HOROVOD_PERFSCOPE_XLA_FLOPS = "HOROVOD_PERFSCOPE_XLA_FLOPS"
 HOROVOD_AUTOTUNE = "HOROVOD_AUTOTUNE"
 HOROVOD_AUTOTUNE_LOG = "HOROVOD_AUTOTUNE_LOG"
 HOROVOD_AUTOTUNE_WARMUP_SAMPLES = "HOROVOD_AUTOTUNE_WARMUP_SAMPLES"
@@ -73,6 +86,16 @@ DEFAULT_CACHE_CAPACITY = 1024
 def _env_bool(name: str, default: bool = False) -> bool:
     v = os.environ.get(name)
     if v is None:
+        return default
+    return v.strip().lower() in ("1", "true", "yes", "on")
+
+
+def _env_on(name: str, default: bool) -> bool:
+    """Like _env_bool, but an empty or blank value also keeps the
+    default: the convention of the always-on gates (HOROVOD_PERFSCOPE),
+    where `VAR=` in a wrapper script must not switch the subsystem off."""
+    v = os.environ.get(name)
+    if v is None or not v.strip():
         return default
     return v.strip().lower() in ("1", "true", "yes", "on")
 
@@ -140,6 +163,9 @@ class Config:
     bucket_autotune: bool = False
     bucket_autotune_interval: int = 20
     bucket_autotune_max_adjustments: int = 4
+    # The Chrome-trace timeline that init() starts on rank 0.
+    timeline_path: str = ""
+    timeline_mark_cycles: bool = False
 
     # Topology (launcher-injected); None where the env does not say.
     rank: Optional[int] = None
@@ -183,6 +209,8 @@ class Config:
                 HOROVOD_BUCKET_AUTOTUNE_INTERVAL, 20),
             bucket_autotune_max_adjustments=_env_int(
                 HOROVOD_BUCKET_AUTOTUNE_MAX_ADJUSTMENTS, 4),
+            timeline_path=os.environ.get(HOROVOD_TIMELINE, ""),
+            timeline_mark_cycles=_env_bool(HOROVOD_TIMELINE_MARK_CYCLES),
             rank=_env_or_mpi(HOROVOD_RANK, HOROVOD_MPI_RANK_ENV),
             size=_opt_int(HOROVOD_SIZE),
             local_rank=_env_or_mpi(HOROVOD_LOCAL_RANK,

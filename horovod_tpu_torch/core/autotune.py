@@ -22,8 +22,10 @@ broadcast is a collective that every rank issues at the same step. The
 tuners write `Config` fields; optim/optimizer.py DistributedOptimizer
 re-plans its buckets between steps when the threshold moves.
 
-Left out: the JAX tuners' metrics and timeline marks (ROADMAP A8, A13),
-the cache-capacity knob (see `default_knobs`), and OnlineLayoutTuner,
+The ParameterManager marks each sample boundary on the timeline
+(`mark_cycle`, drawn under HOROVOD_TIMELINE_MARK_CYCLES), as the JAX
+package's does. Left out: the JAX tuners' metrics (ROADMAP A13), the
+cache-capacity knob (see `default_knobs`), and OnlineLayoutTuner,
 which tunes the layout pass (A7).
 """
 
@@ -278,6 +280,12 @@ class ParameterManager:
         s = self._current
         if s.steps < self.steps_per_sample:
             return False
+        # A sample boundary is this design's "cycle" (the reference
+        # marks its background loop's cycles).
+        from horovod_tpu_torch.core import topology
+        tl = topology.timeline()
+        if tl is not None:
+            tl.mark_cycle()
         score = s.bytes / max(s.seconds, 1e-12)  # bytes a second
         if self.warmup_remaining > 0:
             self.warmup_remaining -= 1

@@ -33,6 +33,14 @@ set). `init(process_sets=[...])` registers sets beyond the global one
 ParameterManager, else under HOROVOD_BUCKET_AUTOTUNE the
 OnlineBucketTuner (core/autotune.py): both move the fusion threshold,
 so at most one runs; shutdown drops it.
+
+With HOROVOD_TIMELINE set, init starts the Chrome-trace timeline
+(profiler/timeline.py) on rank 0, as the JAX package does: co-hosted
+ranks sharing the path would overwrite each other's file, and
+`hvd.start_timeline` works on any rank with a path of its own. A path
+that cannot be written logs a warning and the world runs on without a
+timeline. shutdown pushes the perfscope summary to the launcher's KV
+(profiler/perfscope.py) and closes the timeline.
 """
 
 from __future__ import annotations
@@ -70,6 +78,7 @@ class _State:
     parameter_manager: object = None  # core/autotune.ParameterManager
     bucket_tuner: object = None  # core/autotune.OnlineBucketTuner
     joined: bool = False  # inside hvd.join(); guarded by _lock
+    timeline: object = None  # profiler/timeline.Timeline while one runs
 
 
 @dataclasses.dataclass(frozen=True)
@@ -310,6 +319,17 @@ def init(device: Optional[str] = None,
         _state.initialized = True
         for ps in process_sets or ():
             _state.process_set_table.register(ps)
+        if cfg.timeline_path and rank == 0 and _state.timeline is None:
+            from horovod_tpu_torch.profiler.timeline import Timeline
+            tl = Timeline(cfg.timeline_path,
+                          mark_cycles=cfg.timeline_mark_cycles)
+            try:
+                tl.start()
+                _state.timeline = tl
+            except OSError as e:
+                from horovod_tpu_torch.common.hvd_logging import get_logger
+                get_logger().warning("could not start timeline at %s: %s",
+                                     cfg.timeline_path, e)
 
 
 def shutdown() -> None:
@@ -317,6 +337,10 @@ def shutdown() -> None:
     with _lock:
         if not _state.initialized:
             return
+        from horovod_tpu_torch.profiler import perfscope
+        perfscope.push_summary()  # while the rank still keys it
+        if _state.timeline is not None:
+            _state.timeline.stop()
         _state.process_set_table.clear()
         dist.destroy_process_group()
         if _state.store_file and os.path.exists(_state.store_file):
@@ -404,6 +428,30 @@ def joined() -> bool:
     """True while this rank is inside hvd.join()."""
     with _lock:
         return _state.joined
+
+
+def timeline():
+    """The running Chrome-trace timeline, or None (no init needed)."""
+    return _state.timeline
+
+
+def start_timeline(file_path: str, mark_cycles: bool = False) -> None:
+    """Start a timeline into `file_path` on this rank (raises OSError
+    when the file cannot be written); a running one goes on."""
+    with _lock:
+        if _state.timeline is None:
+            from horovod_tpu_torch.profiler.timeline import Timeline
+            tl = Timeline(file_path, mark_cycles=mark_cycles)
+            tl.start()
+            _state.timeline = tl
+
+
+def stop_timeline() -> None:
+    """Stop the running timeline and write its file's end."""
+    with _lock:
+        tl, _state.timeline = _state.timeline, None
+    if tl is not None:
+        tl.stop()
 
 
 def rendezvous() -> str:

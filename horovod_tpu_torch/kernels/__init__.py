@@ -6,7 +6,10 @@ ctypes. The build runs at first use, into `horovod_tpu_torch/_build/`
 (listed in .gitignore), named by a hash of the source, the headers and
 that source's own flags, so a checkout builds what it holds and nothing
 stale is loaded. `build_all()`
-starts one `nvcc` per source, all at once.
+starts one `nvcc` per source, all at once. A build is the port's
+counterpart of the JAX package's trace and compile on a cache miss: its
+window is perfscope's `compile` phase, and each source is a COMPILE
+span on the timeline.
 
 Every C entry point returns `cudaGetLastError()` after its launches;
 `check()` raises KernelError when that is not cudaSuccess.
@@ -20,6 +23,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from typing import Dict, List, Sequence
 
 from horovod_tpu_torch.common.exceptions import KernelError
@@ -87,13 +91,36 @@ def _finish(name: str, started) -> None:
     os.replace(tmp, out)  # atomic: a concurrent loader sees all or none
 
 
+def _build(names: Sequence[str]) -> None:
+    """Build the sources of `names` not yet built, one nvcc each, in
+    parallel (the caller holds _lock)."""
+    todo = [n for n in names if not os.path.exists(_target(n))]
+    if not todo:
+        return
+    from horovod_tpu_torch.core import topology
+    from horovod_tpu_torch.profiler import perfscope
+    tl = topology.timeline()
+    t0 = time.perf_counter()
+    try:
+        if tl is not None:
+            for n in todo:
+                tl.span_begin(n, "COMPILE")
+        started = [(n, _start(n)) for n in todo]
+        for n, s in started:
+            try:
+                _finish(n, s)
+            finally:
+                if tl is not None:
+                    tl.span_end(n, "COMPILE")
+    finally:
+        perfscope.attribute("compile", time.perf_counter() - t0)
+
+
 def build_all(names: Sequence[str] = SOURCES) -> List[str]:
     """Build every source not yet built, one nvcc each, in parallel.
     Returns the library paths."""
     with _lock:
-        started = [(n, _start(n)) for n in names]
-        for n, s in started:
-            _finish(n, s)
+        _build(names)
     return [_target(n) for n in names]
 
 
@@ -101,7 +128,7 @@ def lib(name: str) -> ctypes.CDLL:
     """The loaded library for `csrc/<name>.cu`, built at first use."""
     with _lock:
         if name not in _libs:
-            _finish(name, _start(name))
+            _build([name])
             _libs[name] = ctypes.CDLL(_target(name))
         return _libs[name]
 

@@ -35,12 +35,22 @@ factors on the values. `BucketTimer` takes each bucket's
 launch-to-completion time for the online bucket tuner (the counterpart
 of the JAX package's profiled `bucketed_allreduce`).
 
+Every call is instrumented as in the JAX package (`instrument`): one
+span on the Chrome-trace timeline (profiler/timeline.py), named by the
+op's name and its activity (ALLREDUCE, ALLGATHER, BROADCAST,
+REDUCESCATTER, ALLTOALL, BARRIER), and its window attributed to
+perfscope's `comms` phase (profiler/perfscope.py). The window of an
+`_async` form is the launch; that of the blocking form, launch and wait.
+On a card both are host windows: the device may still be transferring
+when `wait()` returns.
+
 Not ported here: the consistency fingerprints (ROADMAP A13), the
-metrics and instrumentation, and the stall watchdog (A13).
+collectives' metrics and byte counters, and the stall watchdog (A13).
 """
 
 from __future__ import annotations
 
+import itertools
 import threading
 import time
 from typing import Callable, List, Optional, Sequence, Tuple
@@ -54,6 +64,7 @@ from horovod_tpu_torch.common.exceptions import (DuplicateNameError,
 from horovod_tpu_torch.core import topology
 from horovod_tpu_torch.core.process_sets import ProcessSet, global_process_set
 from horovod_tpu_torch.ops import adasum, fusion
+from horovod_tpu_torch.profiler import perfscope
 
 # torch 2.13 renames the tensor forms to *_single and deprecates the old
 # names; older builds have only the old ones.
@@ -125,6 +136,51 @@ def _named(name: Optional[str], start: Callable[[], Handle]) -> Handle:
         raise
     h.name = name if claimed else None
     return h
+
+
+class instrument:
+    """A timeline span and perfscope's `comms` attribution around a
+    collective's host window (the JAX package's `_instrument`). With no
+    timeline and HOROVOD_PERFSCOPE=0 it reads no clock. Nested
+    attributions (a kernel build inside the window) are subtracted from
+    the window's own by diffing `attributed_marker`."""
+
+    __slots__ = ("name", "activity", "tl", "ps", "timed", "t0",
+                 "attr_mark")
+
+    def __init__(self, name: str, activity: str) -> None:
+        self.name = name
+        self.activity = activity
+
+    def __enter__(self) -> "instrument":
+        self.ps = perfscope.get()
+        self.tl = topology.timeline()
+        if self.tl is not None:
+            self.tl.span_begin(self.name, self.activity)
+        self.timed = self.ps is not perfscope.NOOP
+        if self.timed:
+            self.attr_mark = self.ps.attributed_marker()
+            self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        if self.timed:
+            dt = time.perf_counter() - self.t0
+        if self.tl is not None:
+            self.tl.span_end(self.name, self.activity)
+        if self.timed:
+            nested = self.ps.attributed_marker() - self.attr_mark
+            self.ps.attribute("comms", dt - nested)
+        return False
+
+
+def _call(name: str, activity: str, start: Callable[[], Handle],
+          wait: bool):
+    """Start an op inside its instrumented window; with `wait`, wait for
+    it there too and return its result, else return the handle."""
+    with instrument(name, activity):
+        h = start()
+        return h.wait() if wait else h
 
 
 def _resolve(process_set: Optional[ProcessSet]) -> ProcessSet:
@@ -246,12 +302,8 @@ def _launch(rop: T.ReduceOp, prescale: float, postscale: float,
     return start
 
 
-def allreduce_async(tensor: torch.Tensor, average: Optional[bool] = None,
-                    name: Optional[str] = None, op=None,
-                    prescale_factor: float = 1.0,
-                    postscale_factor: float = 1.0,
-                    process_set: Optional[ProcessSet] = None) -> Handle:
-    """Start reducing `tensor` across the set; the input is untouched."""
+def _allreduce(tensor, average, name, op, prescale_factor, postscale_factor,
+               process_set) -> Handle:
     ps = _resolve(process_set)
     rop = _normalize_op(average, op)
     if tensor.is_sparse:
@@ -261,14 +313,26 @@ def allreduce_async(tensor: torch.Tensor, average: Optional[bool] = None,
     return _named(name, lambda: start(tensor.clone()))
 
 
+def allreduce_async(tensor: torch.Tensor, average: Optional[bool] = None,
+                    name: Optional[str] = None, op=None,
+                    prescale_factor: float = 1.0,
+                    postscale_factor: float = 1.0,
+                    process_set: Optional[ProcessSet] = None) -> Handle:
+    """Start reducing `tensor` across the set; the input is untouched."""
+    return _call(name or "allreduce", "ALLREDUCE", lambda: _allreduce(
+        tensor, average, name, op, prescale_factor, postscale_factor,
+        process_set), False)
+
+
 def allreduce(tensor: torch.Tensor, average: Optional[bool] = None,
               name: Optional[str] = None, op=None,
               prescale_factor: float = 1.0,
               postscale_factor: float = 1.0,
               process_set: Optional[ProcessSet] = None) -> torch.Tensor:
     """Reduce `tensor` across the set (default: Average)."""
-    return allreduce_async(tensor, average, name, op, prescale_factor,
-                           postscale_factor, process_set).wait()
+    return _call(name or "allreduce", "ALLREDUCE", lambda: _allreduce(
+        tensor, average, name, op, prescale_factor, postscale_factor,
+        process_set), True)
 
 
 def _fused(tensors, average, op, prescale, postscale, process_set,
@@ -290,9 +354,19 @@ def _fused(tensors, average, op, prescale, postscale, process_set,
         thresh = fusion.effective_threshold(cfg.fusion_threshold_bytes,
                                             cfg.bucket_cap_bytes)
         rev = cfg.bucket_reverse if reverse is None else reverse
-        finish = fusion.fused_launch(list(tensors),
-                                     lambda flat: start(flat).wait,
-                                     thresh, reverse=rev)
+        buckets = itertools.count()
+
+        def launch(flat):
+            if reverse is not None:  # grouped: one span for the call
+                return start(flat).wait
+            # bucketed: a span for each bucket's launch, as in the JAX
+            # package
+            with instrument(f"{name or 'bucketed_allreduce'}"
+                            f"/b{next(buckets)}", "ALLREDUCE"):
+                return start(flat).wait
+
+        finish = fusion.fused_launch(list(tensors), launch, thresh,
+                                     reverse=rev)
         return Handle(None, None, lambda _: finish())
 
     return _named(name, go)
@@ -306,8 +380,9 @@ def grouped_allreduce_async(tensors: Sequence[torch.Tensor],
                             process_set: Optional[ProcessSet] = None
                             ) -> Handle:
     """Start grouped_allreduce; the handle gives the list of results."""
-    return _fused(tensors, average, op, prescale_factor, postscale_factor,
-                  process_set, False, name)
+    return _call(name or "grouped_allreduce", "ALLREDUCE", lambda: _fused(
+        tensors, average, op, prescale_factor, postscale_factor,
+        process_set, False, name), False)
 
 
 def grouped_allreduce(tensors: Sequence[torch.Tensor],
@@ -319,9 +394,9 @@ def grouped_allreduce(tensors: Sequence[torch.Tensor],
                       ) -> List[torch.Tensor]:
     """Reduce a group of tensors in ≤-threshold buckets packed in
     submission order, one collective per bucket."""
-    return grouped_allreduce_async(tensors, average, name, op,
-                                   prescale_factor, postscale_factor,
-                                   process_set).wait()
+    return _call(name or "grouped_allreduce", "ALLREDUCE", lambda: _fused(
+        tensors, average, op, prescale_factor, postscale_factor,
+        process_set, False, name), True)
 
 
 def bucketed_allreduce_async(tensors: Sequence[torch.Tensor],
@@ -332,8 +407,9 @@ def bucketed_allreduce_async(tensors: Sequence[torch.Tensor],
                              process_set: Optional[ProcessSet] = None
                              ) -> Handle:
     """Start bucketed_allreduce; the handle gives the list of results."""
-    return _fused(tensors, average, op, prescale_factor, postscale_factor,
-                  process_set, None, name)
+    return _call(name or "bucketed_allreduce", "ALLREDUCE", lambda: _fused(
+        tensors, average, op, prescale_factor, postscale_factor,
+        process_set, None, name), False)
 
 
 def bucketed_allreduce(tensors: Sequence[torch.Tensor],
@@ -346,9 +422,9 @@ def bucketed_allreduce(tensors: Sequence[torch.Tensor],
     """Reduce a group of tensors as independently launched buckets packed
     in backward-production order (HOROVOD_BUCKET_REVERSE); all buckets are
     in flight before the first is waited on."""
-    return bucketed_allreduce_async(tensors, average, name, op,
-                                    prescale_factor, postscale_factor,
-                                    process_set).wait()
+    return _call(name or "bucketed_allreduce", "ALLREDUCE", lambda: _fused(
+        tensors, average, op, prescale_factor, postscale_factor,
+        process_set, None, name), True)
 
 
 # ------------------------------------------------------- sparse tensors
@@ -520,10 +596,7 @@ def _check_dims(t: torch.Tensor, what: str) -> None:
             f"{what} requires per-rank tensors with at least one dimension")
 
 
-def allgather_async(tensor: torch.Tensor, name: Optional[str] = None,
-                    process_set: Optional[ProcessSet] = None) -> Handle:
-    """Start the concatenation of every member's tensor along dim 0; the
-    first dims may differ (they are exchanged first)."""
+def _allgather(tensor, name, process_set) -> Handle:
     ps = _resolve(process_set)
     _check_dims(tensor, "allgather")
 
@@ -534,10 +607,19 @@ def allgather_async(tensor: torch.Tensor, name: Optional[str] = None,
     return _named(name, go)
 
 
+def allgather_async(tensor: torch.Tensor, name: Optional[str] = None,
+                    process_set: Optional[ProcessSet] = None) -> Handle:
+    """Start the concatenation of every member's tensor along dim 0; the
+    first dims may differ (they are exchanged first)."""
+    return _call(name or "allgather", "ALLGATHER",
+                 lambda: _allgather(tensor, name, process_set), False)
+
+
 def allgather(tensor: torch.Tensor, name: Optional[str] = None,
               process_set: Optional[ProcessSet] = None) -> torch.Tensor:
     """Concatenate every member's tensor along dim 0, in set order."""
-    return allgather_async(tensor, name, process_set).wait()
+    return _call(name or "allgather", "ALLGATHER",
+                 lambda: _allgather(tensor, name, process_set), True)
 
 
 def grouped_allgather(tensors: Sequence[torch.Tensor],
@@ -557,7 +639,8 @@ def grouped_allgather(tensors: Sequence[torch.Tensor],
         return _joined([_gather_start(t, [r[i] for r in rows], ps)
                         for i, t in enumerate(tensors)])
 
-    return _named(name, go).wait()
+    return _call(name or "grouped_allgather", "ALLGATHER",
+                 lambda: _named(name, go), True)
 
 
 # -------------------------------------------------------- reducescatter
@@ -606,6 +689,14 @@ def _rs_op(op) -> T.ReduceOp:
     return rop
 
 
+def _rs(tensor, op, name, prescale_factor, postscale_factor, process_set
+        ) -> Handle:
+    ps = _resolve(process_set)
+    rop = _rs_op(op)
+    return _named(name, lambda: _rs_start(tensor, rop, prescale_factor,
+                                          postscale_factor, ps))
+
+
 def reducescatter_async(tensor: torch.Tensor, op=T.ReduceOp.AVERAGE,
                         name: Optional[str] = None,
                         prescale_factor: float = 1.0,
@@ -614,10 +705,9 @@ def reducescatter_async(tensor: torch.Tensor, op=T.ReduceOp.AVERAGE,
     """Start reducing across the set and scattering dim 0's rows: member
     i gets rows [sum(sizes[:i]), sum(sizes[:i+1])), sizes by Horovod's
     uneven rule."""
-    ps = _resolve(process_set)
-    rop = _rs_op(op)
-    return _named(name, lambda: _rs_start(tensor, rop, prescale_factor,
-                                          postscale_factor, ps))
+    return _call(name or "reducescatter", "REDUCESCATTER", lambda: _rs(
+        tensor, op, name, prescale_factor, postscale_factor, process_set),
+        False)
 
 
 def reducescatter(tensor: torch.Tensor, op=T.ReduceOp.AVERAGE,
@@ -626,8 +716,9 @@ def reducescatter(tensor: torch.Tensor, op=T.ReduceOp.AVERAGE,
                   postscale_factor: float = 1.0,
                   process_set: Optional[ProcessSet] = None) -> torch.Tensor:
     """Reduce across the set, then scatter slices of dim 0."""
-    return reducescatter_async(tensor, op, name, prescale_factor,
-                               postscale_factor, process_set).wait()
+    return _call(name or "reducescatter", "REDUCESCATTER", lambda: _rs(
+        tensor, op, name, prescale_factor, postscale_factor, process_set),
+        True)
 
 
 def grouped_reducescatter(tensors: Sequence[torch.Tensor],
@@ -646,15 +737,13 @@ def grouped_reducescatter(tensors: Sequence[torch.Tensor],
         return _joined([_rs_start(t, rop, prescale_factor, postscale_factor,
                                   ps) for t in tensors])
 
-    return _named(name, go).wait()
+    return _call(name or "grouped_reducescatter", "REDUCESCATTER",
+                 lambda: _named(name, go), True)
 
 
 # ------------------------------------------------------------- alltoall
 
-def alltoall_async(tensor: torch.Tensor, splits=None,
-                   name: Optional[str] = None,
-                   process_set: Optional[ProcessSet] = None) -> Handle:
-    """Start the alltoall; the handle gives (output, received_splits)."""
+def _alltoall(tensor, splits, name, process_set) -> Handle:
     ps = _resolve(process_set)
     _check_dims(tensor, "alltoall")
     T.check_supported_dtype(tensor.dtype)
@@ -688,22 +777,27 @@ def alltoall_async(tensor: torch.Tensor, splits=None,
     return _named(name, go)
 
 
+def alltoall_async(tensor: torch.Tensor, splits=None,
+                   name: Optional[str] = None,
+                   process_set: Optional[ProcessSet] = None) -> Handle:
+    """Start the alltoall; the handle gives (output, received_splits)."""
+    return _call(name or "alltoall", "ALLTOALL", lambda: _alltoall(
+        tensor, splits, name, process_set), False)
+
+
 def alltoall(tensor: torch.Tensor, splits=None, name: Optional[str] = None,
              process_set: Optional[ProcessSet] = None
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Send rows splits[j] of dim 0 to member j, receive every member's
     rows for this one in set order; returns (output, received_splits).
     Without splits, dim 0 must divide by the set's size."""
-    return alltoall_async(tensor, splits, name, process_set).wait()
+    return _call(name or "alltoall", "ALLTOALL", lambda: _alltoall(
+        tensor, splits, name, process_set), True)
 
 
 # ------------------------------------------------- broadcast and barrier
 
-def broadcast_async(tensor: torch.Tensor, root_rank: int,
-                    name: Optional[str] = None,
-                    process_set: Optional[ProcessSet] = None) -> Handle:
-    """Start broadcasting the root's tensor (root_rank is a global rank,
-    a member of the set) into a new tensor on every member."""
+def _broadcast(tensor, root_rank, name, process_set) -> Handle:
     ps = _resolve(process_set)
     ps.rank_index(root_rank)  # the root must be a member
 
@@ -715,11 +809,21 @@ def broadcast_async(tensor: torch.Tensor, root_rank: int,
     return _named(name, go)
 
 
+def broadcast_async(tensor: torch.Tensor, root_rank: int,
+                    name: Optional[str] = None,
+                    process_set: Optional[ProcessSet] = None) -> Handle:
+    """Start broadcasting the root's tensor (root_rank is a global rank,
+    a member of the set) into a new tensor on every member."""
+    return _call(name or "broadcast", "BROADCAST", lambda: _broadcast(
+        tensor, root_rank, name, process_set), False)
+
+
 def broadcast(tensor: torch.Tensor, root_rank: int,
               name: Optional[str] = None,
               process_set: Optional[ProcessSet] = None) -> torch.Tensor:
     """The root rank's tensor, on every member (a new tensor)."""
-    return broadcast_async(tensor, root_rank, name, process_set).wait()
+    return _call(name or "broadcast", "BROADCAST", lambda: _broadcast(
+        tensor, root_rank, name, process_set), True)
 
 
 def broadcast_(tensor: torch.Tensor, root_rank: int,
@@ -728,7 +832,8 @@ def broadcast_(tensor: torch.Tensor, root_rank: int,
     a member of the set)."""
     ps = _resolve(process_set)
     ps.rank_index(root_rank)
-    dist.broadcast(tensor, src=root_rank, group=ps.group)
+    with instrument("broadcast", "BROADCAST"):
+        dist.broadcast(tensor, src=root_rank, group=ps.group)
     return tensor
 
 
@@ -736,9 +841,10 @@ def barrier(process_set: Optional[ProcessSet] = None) -> None:
     """Block until every member reaches the barrier: a one-element
     all-reduce on the collective's device, read back."""
     ps = _resolve(process_set)
-    one = torch.ones(1, dtype=torch.int32, device=topology.device())
-    dist.all_reduce(one, group=ps.group)
-    one.item()
+    with instrument("barrier", "BARRIER"):
+        one = torch.ones(1, dtype=torch.int32, device=topology.device())
+        dist.all_reduce(one, group=ps.group)
+        one.item()
 
 
 def synchronize(handle: Handle):

@@ -44,6 +44,18 @@ in flight; rank 0 decides and every rank applies, so every rank packs
 the same buckets. The tuners coordinate over the global set: an
 optimizer over a smaller process set does not feed them. Once they are
 frozen, a step does not sync.
+
+perfscope (profiler/perfscope.py) is fed as in the reference: each
+`step()` that applies gradients closes one implicit training step (step
+N runs from the end of call N-1 to the end of call N; under
+backward_passes_per_step the step stays open across the accumulation
+passes), `synchronize()` is the `comms` phase and the wrapped
+optimizer's step the `optimizer` phase. Each bucket's launch is a
+`bucketed_allreduce/b<i>` ALLREDUCE span on the timeline and `comms`
+time; on a card the hooks run on autograd's device thread, and that
+time is taken out of the phase the training thread is in. The bytes a
+step reduces go to `set_comms_axes`, under "hvd" (the JAX package's
+global axis) or the process set's id.
 """
 
 from __future__ import annotations
@@ -59,6 +71,7 @@ from horovod_tpu_torch.core import topology
 from horovod_tpu_torch.core.process_sets import ProcessSet, global_process_set
 from horovod_tpu_torch.ops import collectives, fusion
 from horovod_tpu_torch.ops.compression import Compression
+from horovod_tpu_torch.profiler import perfscope
 
 
 def scale_factors(op: T.ReduceOp, k: int, gradient_predivide_factor: float
@@ -276,17 +289,19 @@ class DistributedOptimizer:
         return torch.zeros_like(self.params[i]) if g.is_sparse else g
 
     def _launch(self, bi: int) -> None:
-        if self._start is None:
-            self._begin()
-        flat = fusion.pack(self.plan[bi], {i: self._dense_grad(i)
-                                           for i in self._members[bi]})
-        wire, ctx = self.compression.compress(flat)
-        start = self._start
-        if self._timer is not None:
-            h = self._timer.launch(wire.numel() * wire.element_size(),
-                                   lambda: start(wire))
-        else:
-            h = start(wire)
+        with collectives.instrument(f"bucketed_allreduce/b{bi}",
+                                    "ALLREDUCE"):
+            if self._start is None:
+                self._begin()
+            flat = fusion.pack(self.plan[bi], {i: self._dense_grad(i)
+                                               for i in self._members[bi]})
+            wire, ctx = self.compression.compress(flat)
+            start = self._start
+            if self._timer is not None:
+                h = self._timer.launch(wire.numel() * wire.element_size(),
+                                       lambda: start(wire))
+            else:
+                h = start(wire)
         self._inflight[bi] = (h, ctx)
 
     def _prepare_grads(self) -> List[int]:
@@ -315,7 +330,7 @@ class DistributedOptimizer:
             p = self.params[i]
             p.grad = collectives.sparse_allreduce(p.grad, rop, ps, pre, post)
 
-    def _synchronize_hooked(self) -> None:
+    def _synchronize_hooked(self) -> int:
         sparse = self._prepare_grads()
         if self._start is None:
             self._begin()
@@ -331,12 +346,14 @@ class DistributedOptimizer:
                           outs)
         self._reduce_sparse(sparse)
         self.collectives_per_step = len(self.plan) + 2 * len(sparse)
-        self._tune(self.plan_bytes)
+        nbytes = self.plan_bytes  # the plan may change below
+        self._tune(nbytes)
         new = set(sparse) - self._sparse
         if new:  # every rank sees the same sparse gradients
             self._sparse |= new
             self._replan()
         self._reset()
+        return nbytes
 
     # --------------------------------------------------- step-time path
 
@@ -351,7 +368,7 @@ class DistributedOptimizer:
                 self._threshold()))
         return self._group_buckets[key]
 
-    def _synchronize_at_step(self) -> None:
+    def _synchronize_at_step(self) -> int:
         sparse = self._prepare_grads()
         self._begin()
         ps = collectives._resolve(self.process_set)
@@ -374,29 +391,39 @@ class DistributedOptimizer:
         self.collectives_per_step = calls
         self._tune(nbytes)
         self._reset()
+        return nbytes
 
     # ------------------------------------------------------------- API
 
     def synchronize(self) -> None:
         """Wait for every bucket (launching any whose gradients did not
         all arrive) and install the reduced gradients; on the step-time
-        path, reduce them now."""
-        if self.hooked:
-            self._synchronize_hooked()
-        else:
-            self._synchronize_at_step()
+        path, reduce them now (perfscope's `comms` phase)."""
+        scope = perfscope.get()
+        with scope.phase("comms"):
+            nbytes = self._synchronize_hooked() if self.hooked \
+                else self._synchronize_at_step()
+        axis = "hvd" if self.process_set.ranks is None \
+            else f"process_set_{self.process_set.process_set_id}"
+        scope.set_comms_axes({axis: nbytes})
         self._synchronized = True
 
     def step(self, closure=None):
         """Reduce and apply; None without applying anything on the first
         backward_passes_per_step - 1 calls of each cycle."""
+        scope = perfscope.get()
+        scope.step_entry()
         self._count += 1
         if self._count % self.backward_passes_per_step:
-            return None
-        if not self._synchronized:
-            self.synchronize()
-        self._synchronized = False
-        return self.opt.step(closure)
+            return None  # an accumulation pass: the step stays open
+        try:
+            if not self._synchronized:
+                self.synchronize()
+            self._synchronized = False
+            with scope.phase("optimizer"):
+                return self.opt.step(closure)
+        finally:
+            scope.step_boundary()
 
     def zero_grad(self, set_to_none: bool = True):
         return self.opt.zero_grad(set_to_none=set_to_none)

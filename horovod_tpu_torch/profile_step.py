@@ -13,7 +13,8 @@ device only, and prints the wall time per step of both, the device's
 busy share (the union of kernel intervals over the traced steps' wall
 time) and the device time by kernel family, and writes the whole
 breakdown, top kernels included, to chiprun_out/profile_step.json
-(profile_step_lm.json for the LM).
+(profile_step_lm.json for the LM). The families are the categories of
+profiler/device_profile.py `classify`.
 """
 
 from __future__ import annotations
@@ -30,27 +31,9 @@ import horovod_tpu_torch as hvd
 from horovod_tpu_torch import synthetic_benchmark as sb
 from horovod_tpu_torch import transformer_lm as lm
 from horovod_tpu_torch.models import transformer as tfm
+from horovod_tpu_torch.profiler import device_profile
 
 ROUTES = {"block": ("1", "0"), "fuse_bn": ("0", "1"), "unfused": ("0", "0")}
-
-
-def family(name: str) -> str:
-    n = name.lower()
-    if "hvd" in n:
-        return "port kernels"
-    if "nccl" in n:
-        return "nccl"
-    if ("gemm" in n and "implicit" not in n or "cutlass" in n
-            or "nvjet" in n):  # nvjet: cuBLAS's Hopper GEMMs
-        return "gemm"
-    if any(k in n for k in ("conv", "cudnn", "fprop", "dgrad", "wgrad",
-                            "implicit")):
-        return "conv"
-    if "reduce" in n:
-        return "reduction"
-    if any(k in n for k in ("elementwise", "vectorized", "unrolled")):
-        return "elementwise"
-    return "other"
 
 
 def _union_us(intervals):
@@ -85,29 +68,17 @@ def profile_route(step, steps: int):
     untraced_us = _wall_us(step, steps)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         wall_us = _wall_us(step, steps)
-    # Device-side events, without the GPU spans of user annotations
-    # (e.g. "Optimizer.step#Adam.step"), which cover kernels already
-    # counted.
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and not e.is_user_annotation]
-    by_family, by_name = {}, {}
-    for e in kernels:
-        d = e.time_range.end - e.time_range.start
-        by_family[family(e.name)] = by_family.get(family(e.name), 0.0) + d
-        by_name[e.name] = by_name.get(e.name, 0.0) + d
-    busy = _union_us([(e.time_range.start, e.time_range.end)
-                      for e in kernels])
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    kernels = device_profile.kernel_events(prof)
+    dp = device_profile.aggregate(kernels, reps=steps)
+    busy = _union_us([(start, end) for _, start, end in kernels])
     return {"wall_ms_per_step": wall_us / steps / 1e3,
             "untraced_wall_ms_per_step": untraced_us / steps / 1e3,
             "device_busy_ms_per_step": busy / steps / 1e3,
             "busy_share": busy / wall_us,
             "kernels_per_step": len(kernels) / steps,
-            "family_ms_per_step": {k: v / steps / 1e3 for k, v in
-                                   sorted(by_family.items(),
-                                          key=lambda kv: -kv[1])},
-            "top_ms_per_step": [(n[:120], v / steps / 1e3) for n, v in top]}
+            "family_ms_per_step": dict(sorted(dp.per_category.items(),
+                                              key=lambda kv: -kv[1])),
+            "top_ms_per_step": [(n[:120], v) for n, v in dp.top_ops(12)]}
 
 
 def _print(route, r):

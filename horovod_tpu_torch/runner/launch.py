@@ -17,13 +17,17 @@ Usage:
 
 Not ported yet, and refused with a HorovodError naming the ROADMAP item
 rather than ignored: elastic mode (--host-discovery-script and its
-flags, A10), the timeline (A8) and the stall inspector (A13). The
---autotune flags set the HOROVOD_AUTOTUNE* knobs that the workers'
-ParameterManager reads (core/autotune.py). The native KV server
-and the job-end persistence of flight-recorder, perfscope, watch and
-trace records (A13, A8) are left out: they serve subsystems the port
-does not have yet. The launcher does not narrow CUDA_VISIBLE_DEVICES:
-each worker takes `cuda:<local_rank>`.
+flags, A10) and the stall inspector (A13). The --autotune flags set the
+HOROVOD_AUTOTUNE* knobs that the workers' ParameterManager reads
+(core/autotune.py); --timeline-filename and --timeline-mark-cycles set
+HOROVOD_TIMELINE and HOROVOD_TIMELINE_MARK_CYCLES, and rank 0 writes
+the trace (core/topology.py). At the job's end the launcher writes the
+perfscope summaries the workers pushed to its KV into
+HOROVOD_FLIGHT_DIR (profiler/perfscope.py). The native KV server and
+the job-end persistence of flight-recorder, watch and trace records
+(A13) are left out: they serve subsystems the port does not have yet.
+The launcher does not narrow CUDA_VISIBLE_DEVICES: each worker takes
+`cuda:<local_rank>`.
 """
 
 from __future__ import annotations
@@ -114,9 +118,11 @@ def build_parser() -> argparse.ArgumentParser:
     hag.add_argument("--no-hierarchical-allgather", dest="hier_allgather",
                      action="store_false")
     p.add_argument("--timeline-filename", default=None,
-                   help="Chrome-trace timeline path (HOROVOD_TIMELINE; "
-                        "not ported yet: ROADMAP A8)")
-    p.add_argument("--timeline-mark-cycles", action="store_true")
+                   help="Chrome-trace timeline path, written by rank 0 "
+                        "(HOROVOD_TIMELINE)")
+    p.add_argument("--timeline-mark-cycles", action="store_true",
+                   help="mark the autotuner's sample boundaries on the "
+                        "timeline (HOROVOD_TIMELINE_MARK_CYCLES)")
     p.add_argument("--autotune", action="store_true")
     p.add_argument("--autotune-log-file", default=None)
     p.add_argument("--autotune-warmup-samples", type=int, default=None)
@@ -250,8 +256,6 @@ def unported_flags(args: argparse.Namespace) -> List[str]:
         # elastic-only, with defaults: refused when set to anything else
         ("--elastic-timeout", args.elastic_timeout != 600, "A10"),
         ("--start-timeout", args.start_timeout != 600, "A10"),
-        ("--timeline-filename", args.timeline_filename, "A8"),
-        ("--timeline-mark-cycles", args.timeline_mark_cycles, "A8"),
         ("--stall-check", args.no_stall_check is False, "A13"),
         ("--stall-check-warning-time-seconds",
          args.stall_check_warning_time_seconds is not None, "A13"),
@@ -580,6 +584,10 @@ def launch_static(np: int, host_spec: str, command: List[str],
             for w in workers:
                 w.terminate()
     finally:
+        # The workers' perfscope summaries live only in this KV: write
+        # them out before it goes (HOROVOD_FLIGHT_DIR, when set).
+        from horovod_tpu_torch.profiler import perfscope
+        perfscope.persist_kv_summaries(rdv)
         rdv.stop()
     bad = [(i, c) for i, c in enumerate(codes) if c != 0]
     if bad:

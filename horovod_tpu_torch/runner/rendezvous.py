@@ -150,6 +150,14 @@ class RendezvousServer:
         with self._handler.lock:
             return self._handler.store.get(f"{scope}/{key}")
 
+    def scope_items(self, scope: str) -> Dict[str, bytes]:
+        """Every key under `scope/` (key suffix -> value): the launcher
+        persists the perfscope summaries the workers pushed."""
+        pfx = f"{scope}/"
+        with self._handler.lock:
+            return {k[len(pfx):]: v for k, v in self._handler.store.items()
+                    if k.startswith(pfx)}
+
     def worker_env(self, ip: str) -> Dict[str, str]:
         """The env entries a worker needs to reach this server."""
         return {C.HOROVOD_RENDEZVOUS_ADDR: ip,
@@ -180,7 +188,8 @@ class KVClient:
     POLL_BASE = 0.02
     POLL_CAP = 0.5
 
-    def __init__(self, addr: str, port: int, secret=_FROM_ENV):
+    def __init__(self, addr: str, port: int, secret=_FROM_ENV,
+                 retry_policy=None, request_timeout: Optional[float] = None):
         primary = f"{addr}:{port}"
         endpoints = [f"{h}:{p}" for h, p in parse_endpoints(
             os.environ.get(HOROVOD_RENDEZVOUS_ADDRS, ""))]
@@ -191,7 +200,9 @@ class KVClient:
         self.base = f"http://{primary}"
         self.secret = secret_mod.secret_from_env() \
             if secret is _FROM_ENV else secret
-        self.retry = resilience.kv_retry_policy()
+        self.retry = retry_policy if retry_policy is not None \
+            else resilience.kv_retry_policy()
+        self.request_timeout = request_timeout
 
     def _request_once(self, method: str, path: str, data: Optional[bytes]):
         req = urllib.request.Request(f"{self.base}{path}", data=data,
@@ -201,7 +212,10 @@ class KVClient:
                 secret_mod.DIGEST_HEADER,
                 secret_mod.compute_digest(self.secret, method, path,
                                           data or b""))
-        return urllib.request.urlopen(req, timeout=30 if data else 10)
+        timeout = self.request_timeout
+        if timeout is None:
+            timeout = 30 if data else 10
+        return urllib.request.urlopen(req, timeout=timeout)
 
     def _request(self, method: str, path: str, data: Optional[bytes]):
         return self.retry.call(self._request_once, method, path, data)

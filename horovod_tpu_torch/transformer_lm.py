@@ -98,7 +98,7 @@ def report(cfg, batch: int, seq: int, step_s: float, device_name: str):
     tps = batch * seq / step_s
     flops = F.transformer_train_flops_per_token(
         cfg.d_model, cfg.d_ff, cfg.n_layers, cfg.vocab, seq) * tps
-    peak = F.peak_flops(device_name)
+    peak = F.peak_flops_per_chip(device_name)
     return {"tokens_per_s": tps, "step_ms": step_s * 1e3,
             "mfu": flops / peak if peak else None}
 

@@ -435,7 +435,6 @@ def test_worker_env_names_match_jax():
     (["--blacklist-cooldown-range", "1", "5"], "A10"),
     (["--elastic-timeout", "30"], "A10"),
     (["--start-timeout", "30"], "A10"),
-    (["--timeline-filename", "/tmp/t.json"], "A8"),
     (["--stall-check"], "A13"),
     (["--stall-check-warning-time-seconds", "5"], "A13"),
 ])
@@ -465,6 +464,35 @@ def test_autotune_flags_set_the_worker_env(flags, knob, attr, value):
     """Each --autotune flag is taken (no longer refused) and reaches the
     workers as its knob, as the JAX launcher maps it; the workers'
     Config reads it back as the JAX package's Config does."""
+    seen = {}
+
+    def fake(np, hosts, command, env, **kw):
+        seen.update(env=env)
+        return 0
+
+    with mock.patch.object(tlaunch, "launch_static", fake):
+        assert tlaunch.run_commandline(
+            ["-np", "2", *flags, "--", "python", "t.py"]) == 0
+    jenv = jlaunch.args_to_env(
+        jlaunch.build_parser().parse_args(["-np", "2", *flags, "true"]))
+    assert seen["env"][knob] == jenv[knob]
+    assert knob == getattr(JC, knob)
+    with mock.patch.dict("os.environ", {knob: seen["env"][knob]}):
+        got = getattr(TC.Config.from_env(), attr)
+        want = getattr(JC.Config.from_env(), attr)
+    assert got == want == value
+
+
+@pytest.mark.parametrize("flags,knob,attr,value", [
+    (["--timeline-filename", "/tmp/t.json"], TC.HOROVOD_TIMELINE,
+     "timeline_path", "/tmp/t.json"),
+    (["--timeline-mark-cycles"], TC.HOROVOD_TIMELINE_MARK_CYCLES,
+     "timeline_mark_cycles", True),
+])
+def test_timeline_flags_set_the_worker_env(flags, knob, attr, value):
+    """The two timeline flags are taken (no longer refused) and reach
+    the workers as their knobs, as the JAX launcher maps them; the
+    workers' Config reads them back as the JAX package's does."""
     seen = {}
 
     def fake(np, hosts, command, env, **kw):
