@@ -119,6 +119,34 @@ Phases, each fatal on failure:
      --timeline-filename` of the synthetic benchmark leaves a trace with
      the bucket spans and rank 0's perfscope summary, which the launcher
      persisted into HOROVOD_FLIGHT_DIR.
+ 10. elastic training and checkpointing — ResNet-50 at full width (224²,
+     bf16, batch 32, block route, seed-0 weights, cuDNN deterministic)
+     with DistributedOptimizer(SGD momentum 0.9) in a TrainLoopState:
+     (a) a commit after step 2, two more steps, restore(): parameters,
+     BN stats and momentum equal the commit bit for bit; (b) under
+     @hvd.elastic.run with HOROVOD_ELASTIC=1, a HorovodInternalError
+     injected once after step 3's backward: the state restores, the
+     NCCL world is aborted and made again in the process, the same
+     optimizer carries on, the 5 losses equal an uninterrupted run's bit
+     for bit, kernels 1 and 2 launch 28 times every step on both sides,
+     and no kernel is built or loaded again; (c) 5 steps saving every
+     step through the AsyncCheckpointer under perfscope: each save's
+     bytes, snapshot ms against the step's, the background persist's
+     seconds, the `checkpoint` phase's share, the snapshot's two ways
+     (pinned side stream, synchronous .cpu()) in turns, then a blocking
+     save restored into a fresh model whose logits on phase 4's batch
+     equal the saved model's bit for bit; (d) `runner.launch` in
+     elastic mode over horovod_tpu_torch/elastic/resnet_check.py, the
+     worker SIGKILLed after step 3's commit and round 2's fresh worker
+     resuming from the checkpoint at step 3, its losses (28 + 28
+     launches a step) and final parameter digest equal an uninterrupted
+     twin's, with the time to recover from the kill to round 2's first
+     step; (e) with two or more cards, a world of 2 whose rank 1 exits
+     at step 5: the survivor's collective raises HorovodInternalError
+     within HOROVOD_STALL_SHUTDOWN_TIME_SECONDS (30 s), it restores,
+     re-joins round 2 at size 1, grows back to 2 with a joiner synced
+     from rank 0, and both end on the twin's parameters; with one card
+     it says so.
 Then the `kernels` JSON line, the card's name and power limit, and last
 {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
 
@@ -1002,11 +1030,12 @@ def run_bounded(cmd, timeout, env=None):
     except subprocess.TimeoutExpired:
         proc.terminate()
         try:
-            proc.communicate(timeout=30)
+            out, _ = proc.communicate(timeout=30)
         except subprocess.TimeoutExpired:
             os.killpg(proc.pid, signal.SIGKILL)
-            proc.communicate()
-        raise Failed(f"{' '.join(cmd)}: still running after {timeout} s")
+            out, _ = proc.communicate()
+        raise Failed(f"{' '.join(cmd)}: still running after {timeout} s; "
+                     f"its output's end:\n{(out or '')[-4000:]}")
     return proc.returncode, out
 
 
@@ -1820,6 +1849,434 @@ def observed_path(k12_ms: float, steps: int = 10):
     return out
 
 
+# ------------------------------------------------------ phase 10: elastic
+
+PHASE10_STEPS = 5           # (b), (c): steps of each in-process run
+PHASE10_TWIN_STEPS = 8      # the launched uninterrupted twin (d, e)
+PHASE10_STALL_S = 30        # (e): HOROVOD_STALL_SHUTDOWN_TIME_SECONDS
+
+
+def _resnet_check_job(tmp, hosts, flags, extra_env=None, timeout=240):
+    """`runner.launch` in elastic mode over elastic/resnet_check.py with a
+    discovery script that reads `hosts` from a file the workers may
+    rewrite. Returns ({step: [loss repr, ...]}, parsed lines by kind,
+    the raw output)."""
+    py = sys.executable
+    os.makedirs(tmp, exist_ok=True)
+    hosts_file = os.path.join(tmp, "hosts.txt")
+    with open(hosts_file, "w") as f:
+        f.write(hosts + "\n")
+    script = os.path.join(tmp, "discover.sh")
+    with open(script, "w") as f:
+        f.write(f"#!/bin/sh\ncat {hosts_file}\n")
+    os.chmod(script, 0o755)
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("HOROVOD_ELASTIC", "HOROVOD_RANK", "HOROVOD_SIZE")}
+    env.update({"HOROVOD_CONV_BLOCK": "1", "HOROVOD_FUSE_CONV_BN": "0",
+                "HOROVOD_CKPT_DIR": os.path.join(tmp, "ckpts"),
+                "HOROVOD_CKPT_EVERY": "1"}, **(extra_env or {}))
+    cmd = [py, "-m", "horovod_tpu_torch.runner.launch",
+           "--host-discovery-script", script, "--slots-per-host", "1",
+           "--min-np", "1", "--elastic-timeout", "120",
+           "--blacklist-cooldown-range", "1", "1",
+           py, "-m", "horovod_tpu_torch.elastic.resnet_check",
+           "--hosts-file", hosts_file, *flags]
+    rc, text = run_bounded(cmd, timeout, env=env)
+    need(rc == 0, f"{' '.join(flags)}: the elastic job exited {rc}:\n"
+         f"{text[-4000:]}")
+    lines = {}
+    for ln in text.splitlines():
+        body = ln.split(">: ", 1)[-1]
+        kind = body.split(" ", 1)[0]
+        if kind in ("RESUME", "STEP", "RAISED", "DIGEST", "KILL", "EXIT",
+                    "DONE"):
+            lines.setdefault(kind, []).append(
+                dict(kv.split("=", 1) for kv in body.split()[1:]))
+    losses = {}
+    for f in lines.get("STEP", []):
+        losses.setdefault(int(f["step"]), []).append(f["loss"])
+        need(f["launches"] == "28,28", f"a launched step ran kernels 1 "
+             f"and 2 {f['launches']} times, not 28,28: {f}")
+    need(all(math.isfinite(float(v)) for vs in losses.values() for v in vs),
+         f"non-finite launched losses {losses}")
+    return losses, lines, text
+
+
+def elastic_path():
+    """Phase 10: elastic training and checkpointing on the ResNet-50 main
+    path (224², bf16, batch 32, block route, seed-0 weights, cuDNN
+    deterministic): (a) TrainLoopState's commit and restore, (b) the
+    in-process retry through a reset of the NCCL world, (c) the async
+    checkpointer under perfscope, (d) a preempted launched job resuming
+    from its checkpoint, (e) with two or more cards, a peer's death, a
+    shrink and a grow through the elastic launcher. (d) and (e) alone:
+    `elastic_launched()`."""
+    out = elastic_in_process()
+    launched = elastic_launched()
+    out["seconds"].update(launched.pop("seconds"))
+    out.update(launched)
+    return out
+
+
+def _phase10_env():
+    """Phase 10's knobs and cuDNN's deterministic mode; returns what to
+    put back."""
+    import torch
+    os.environ["HOROVOD_CONV_BLOCK"] = "1"
+    os.environ["HOROVOD_FUSE_CONV_BN"] = "0"
+    cudnn = torch.backends.cudnn
+    saved = (cudnn.deterministic, cudnn.benchmark)
+    cudnn.deterministic, cudnn.benchmark = True, False
+    return saved
+
+
+def elastic_in_process():
+    """Phase 10 (a), (b), (c), in this process on one card."""
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import ckpt, elastic, kernels
+    from horovod_tpu_torch import synthetic_benchmark as sb
+    from horovod_tpu_torch.ckpt import sharded
+    from horovod_tpu_torch.core import topology
+    from horovod_tpu_torch.models import resnet
+    from horovod_tpu_torch.profiler import perfscope
+
+    saved = _phase10_env()
+    os.environ["HOROVOD_ELASTIC"] = "1"  # the elastic NCCL settings
+    tmp = tempfile.TemporaryDirectory(prefix="hvd_phase10_")
+    out = {}
+    took = _lap(out)
+    hvd.init()
+    try:
+        dev = hvd.device()
+        need(dev.type == "cuda", "phase 10 is not on the card")
+        data = sb.make_batch(32, 224, torch.bfloat16, dev, seed=0)
+
+        def build():
+            model = sb.build("resnet50", torch.bfloat16, dev)
+            opt = hvd.DistributedOptimizer(
+                torch.optim.SGD(model.parameters(), lr=0.01, momentum=0.9),
+                named_parameters=model.named_parameters())
+            return model, opt
+
+        def step(model, opt):
+            opt.zero_grad()
+            loss, stats = resnet.loss_fn(model, data, train=True,
+                                         group=dist.group.WORLD)
+            loss.backward()
+            opt.step()
+            model.set_stats(stats)
+            return loss.item()
+
+        def drop(opt):
+            for h in opt._hooks:
+                h.remove()
+
+        # (a) commit after step 2, 2 more steps, restore
+        model, opt = build()
+        st = elastic.TrainLoopState(model=model, optimizer=opt)
+        for s in (1, 2):
+            step(model, opt)
+            st.step = s
+        t0 = time.perf_counter()
+        st.commit()
+        torch.cuda.synchronize()
+        commit_ms = (time.perf_counter() - t0) * 1e3
+        want = {k: v.clone() for k, v in model.state_dict().items()}
+        want_mom = [opt.state[p]["momentum_buffer"].clone()
+                    for p in model.parameters()]
+        for s in (3, 4):
+            step(model, opt)
+            st.step = s
+        moved = not torch.equal(model.stem.conv, want["stem.conv"])
+        st.restore()
+        same = all(torch.equal(model.state_dict()[k], v)
+                   for k, v in want.items())
+        same_mom = all(torch.equal(opt.state[p]["momentum_buffer"], m)
+                       for p, m in zip(model.parameters(), want_mom))
+        out["a"] = dict(commit_ms=commit_ms, moved=moved, params=same,
+                        momentum=same_mom, step=st.step)
+        print(f"elastic (a): commit of {len(want)} state tensors and "
+              f"{len(want_mom)} momentum buffers {commit_ms:.2f} ms; after "
+              f"2 more steps restore() gives the committed parameters and "
+              f"BN stats {same}, momentum {same_mom} (step {st.step}); "
+              f"{took('a'):.1f} s")
+        need(moved and same and same_mom and st.step == 2,
+             "phase 10 (a): restore() did not give the commit back")
+        drop(opt)
+        del model, opt, st
+
+        # (b) HorovodInternalError at step 3 through @hvd.elastic.run
+        def run_b(inject):
+            model, opt = build()
+            state = elastic.TrainLoopState(model=model, optimizer=opt)
+            rec = {"losses": [], "launches": [], "worlds": []}
+
+            @elastic.run
+            def train(st):
+                rec["worlds"].append(topology.rendezvous())
+                while st.step < PHASE10_STEPS:
+                    c0 = read_counters()
+                    opt.zero_grad()
+                    loss, stats = resnet.loss_fn(model, data, train=True,
+                                                 group=dist.group.WORLD)
+                    loss.backward()
+                    if inject and st.step == 2 and len(rec["worlds"]) == 1:
+                        raise hvd.HorovodInternalError("injected at step 3")
+                    opt.step()
+                    model.set_stats(stats)
+                    rec["losses"].append(loss.item())
+                    c1 = read_counters()
+                    rec["launches"].append((c1["fwd"] - c0["fwd"],
+                                            c1["act_bwd"] - c0["act_bwd"]))
+                    st.step += 1
+                    st.commit()
+                return st.step
+
+            builds, libs = kernels.build_count, dict(kernels._libs)
+            t0 = time.perf_counter()
+            train(state)
+            rec["seconds"] = time.perf_counter() - t0
+            rec["builds"] = kernels.build_count - builds
+            rec["libs_kept"] = libs == kernels._libs
+            rec["backend"] = dist.get_backend()
+            drop(opt)
+            return rec
+
+        ref = run_b(False)
+        got = run_b(True)
+        out["b"] = dict(uninterrupted=ref, injected=got)
+        print(f"elastic (b): losses {got['losses']} with the reset at step "
+              f"3, uninterrupted {ref['losses']}; kernel 1, 2 launches a "
+              f"step {got['launches']}; worlds {got['worlds']}; kernel "
+              f"builds during the run {got['builds']}, libraries kept "
+              f"{got['libs_kept']}; {got['seconds']:.1f} s against "
+              f"{ref['seconds']:.1f} s; {took('b'):.1f} s")
+        need(got["losses"] == ref["losses"],
+             "phase 10 (b): the losses through the reset differ from the "
+             "uninterrupted run's")
+        need(len(got["worlds"]) == 2 and got["worlds"][0] != got["worlds"][1]
+             and got["backend"] == "nccl",
+             "phase 10 (b): the NCCL world was not re-made in the process")
+        need(all(x == (28, 28) for x in got["launches"] + ref["launches"])
+             and len(got["launches"]) == PHASE10_STEPS,
+             "phase 10 (b): kernels 1 and 2 did not run 28 times a step")
+        need(got["builds"] == 0 and got["libs_kept"],
+             "phase 10 (b): the reset built or loaded a kernel again")
+
+        # (c) async checkpointing, saving every step, under perfscope
+        model, opt = build()
+        saver = ckpt.AsyncCheckpointer(os.path.join(tmp.name, "c"))
+        st = elastic.TrainLoopState(model=model, optimizer=opt,
+                                    checkpointer=saver)
+        scope = perfscope.get()
+        scope.reset()
+        saves = []
+        for s in range(1, PHASE10_STEPS + 1):
+            t0 = time.perf_counter()
+            step(model, opt)
+            t1 = time.perf_counter()
+            st.step = s
+            st.commit()
+            t2 = time.perf_counter()
+            accepted = st.checkpoint()
+            t3 = time.perf_counter()
+            saves.append(dict(step=s, accepted=accepted,
+                              step_ms=(t1 - t0) * 1e3,
+                              commit_ms=(t2 - t1) * 1e3,
+                              save_call_ms=(t3 - t2) * 1e3))
+        need(saver.wait(120), "phase 10 (c): the writer did not finish")
+        summ = scope.summary()
+        hist = {h["step"]: h for h in saver.history}
+        for rec in saves:
+            h = hist.get(rec["step"]) if rec["accepted"] else None
+            if h is not None:
+                rec.update(bytes=h["bytes"], snapshot_ms=h["snapshot_s"] * 1e3,
+                           persist_s=h.get("persist_s"),
+                           commit_s=h.get("commit_s"))
+                print(f"elastic (c): step {rec['step']} save: "
+                      f"{h['bytes']} bytes, snapshot "
+                      f"{rec['snapshot_ms']:.2f} ms against the step's "
+                      f"{rec['step_ms']:.2f} ms (commit "
+                      f"{rec['commit_ms']:.2f} ms), persist "
+                      f"{rec['persist_s']:.3f} s in the background")
+            else:
+                print(f"elastic (c): step {rec['step']} save skipped "
+                      f"(writer busy), step {rec['step_ms']:.2f} ms")
+        share = summ["phase_fractions"].get("checkpoint", 0.0)
+        out["c"] = dict(saves=saves, skipped=saver.skipped,
+                        checkpoint_share=share,
+                        checkpoint_s=summ["phases_s"].get("checkpoint", 0.0),
+                        step_mean_s=summ["wall"]["mean_s"],
+                        perfscope=summ)
+        print(f"elastic (c): perfscope over {summ['steps']} steps: "
+              f"checkpoint {share:.4f} of the step "
+              f"({summ['phases_s'].get('checkpoint', 0.0) * 1e3:.2f} ms a "
+              f"step), {saver.skipped} save(s) skipped by back-pressure")
+        need(saves[0]["accepted"] and "checkpoint" in summ["phases_s"],
+             "phase 10 (c): the first save was not taken or not attributed")
+        # the snapshot's two ways on the committed payload, in turns
+        tree, _ = st._ckpt_payload()
+        tensors = [t for _, t in sharded.flatten(tree)]
+        ways = {"pinned side stream": lambda: sharded._host_copies(tensors),
+                "synchronous .cpu()": lambda: [t.cpu() for t in tensors]}
+        times = {k: [] for k in ways}
+        for k in list(ways) + list(reversed(list(ways))):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ways[k]()
+            times[k].append((time.perf_counter() - t0) * 1e3)
+        out["c"]["snapshot_ways_ms"] = times
+        print(f"elastic (c): snapshot of {len(tensors)} tensors, in turns: "
+              + "; ".join(f"{k} {', '.join(f'{v:.2f}' for v in vs)} ms"
+                          for k, vs in times.items()))
+        # the final blocking save, restored into a fresh model
+        need(st.checkpoint(block=True), "phase 10 (c): the final blocking "
+             "save did not commit")
+        fresh, fopt = build()
+        fst = elastic.TrainLoopState(model=fresh, optimizer=fopt,
+                                     checkpointer=ckpt.AsyncCheckpointer(
+                                         saver.root))
+        need(fst.maybe_resume() and fst.step == PHASE10_STEPS,
+             "phase 10 (c): the fresh model did not resume from disk")
+        with torch.no_grad():
+            la, _ = resnet.apply(model, data[0], train=False)
+            lb, _ = resnet.apply(fresh, data[0], train=False)
+        equal = torch.equal(la, lb)
+        out["c"]["logits_equal"] = equal
+        print(f"elastic (c): logits of the restored model on phase 4's "
+              f"batch equal the saved model's bit for bit: {equal}; "
+              f"{took('c'):.1f} s")
+        need(equal, "phase 10 (c): restored logits differ")
+        saver.close()
+        drop(opt)
+        drop(fopt)
+        del model, opt, fresh, fopt, st, fst
+        torch.cuda.empty_cache()
+    finally:
+        hvd.shutdown()
+        tmp.cleanup()
+        torch.backends.cudnn.deterministic, \
+            torch.backends.cudnn.benchmark = saved
+        os.environ.pop("HOROVOD_ELASTIC", None)
+    return out
+
+
+def _lap(out):
+    """took(part): wall seconds since the last part ended, into
+    out["seconds"]."""
+    t_last = [time.perf_counter()]
+
+    def took(part):
+        now = time.perf_counter()
+        out.setdefault("seconds", {})[part] = now - t_last[0]
+        t_last[0] = now
+        return out["seconds"][part]
+    return took
+
+
+def _preempted(tmp, twin, twin_d, out, took):
+    """Phase 10 (d): the launched job SIGKILLed after step 3's commit
+    resumes from its checkpoint in round 2."""
+    got, gl, text = _resnet_check_job(
+        os.path.join(tmp, "d"), "localhost:1",
+        ["--steps", "6", "--kill-step", "3", "--digest-steps", "6"])
+    kill_t = float(gl["KILL"][0]["t"])
+    round2 = [f for f in gl["STEP"] if f["round"] != "1"]
+    resumed = [f for f in gl["RESUME"] if f["round"] != "1"]
+    recover_s = float(round2[0]["t"]) - kill_t
+    out["d"] = dict(losses=got, twin=twin, resume=resumed,
+                    recover_s=recover_s, digest=gl["DIGEST"],
+                    twin_digest=twin_d)
+    print(f"elastic (d): killed after step {gl['KILL'][0]['step']}'s "
+          f"commit; round 2 {resumed[0]}; losses "
+          f"{ {k: v[0] for k, v in sorted(got.items())} }; twin "
+          f"{ {k: v[0] for k, v in sorted(twin.items()) if k <= 6} }; "
+          f"digest at 6 {gl['DIGEST'][0]['digest'][:16]}, twin's "
+          f"{twin_d['6'][:16]}; time to recover {recover_s:.2f} s "
+          f"(kill to round 2's first step); {took('d'):.1f} s")
+    need(len(gl["KILL"]) == 1 and resumed
+         and resumed[0]["step"] == "3"
+         and resumed[0]["source"] == "checkpoint",
+         "phase 10 (d): round 2 did not resume from step 3's checkpoint")
+    need(sorted(got) == list(range(1, 7))
+         and all(got[k] == twin[k] for k in got),
+         "phase 10 (d): the losses differ from the uninterrupted twin's")
+    need(gl["DIGEST"][0]["digest"] == twin_d["6"],
+         "phase 10 (d): the parameters differ from the twin's")
+
+
+def elastic_launched(preempt: bool = True):
+    """Phase 10 (d) and (e): `runner.launch` in elastic mode over
+    elastic/resnet_check.py, against an uninterrupted twin; without
+    `preempt`, the twin and (e) alone (the four-card call)."""
+    import tempfile
+    import torch
+    saved = _phase10_env()
+    tmp = tempfile.TemporaryDirectory(prefix="hvd_phase10_")
+    out = {}
+    took = _lap(out)
+    try:
+        twin, tl, _ = _resnet_check_job(
+            os.path.join(tmp.name, "twin"), "localhost:1",
+            ["--steps", str(PHASE10_TWIN_STEPS), "--digest-steps", "6,8"])
+        twin_d = {f["step"]: f["digest"] for f in tl["DIGEST"]}
+        out["twin"] = dict(losses=twin, digest=twin_d)
+        print(f"elastic: uninterrupted twin, losses "
+              f"{ {k: v[0] for k, v in sorted(twin.items())} }; "
+              f"{took('twin'):.1f} s")
+        if preempt:
+            _preempted(tmp.name, twin, twin_d, out, took)
+
+        # (e) two or more cards: a peer dies, the survivor shrinks, grows
+        n = torch.cuda.device_count()
+        if n < 2:
+            out["e"] = dict(skipped=f"{n} card visible")
+            print(f"elastic (e): needs two or more cards, {n} visible: "
+                  f"not run")
+        else:
+            got, gl, text = _resnet_check_job(
+                os.path.join(tmp.name, "e"), "localhost:2",
+                ["--steps", str(PHASE10_TWIN_STEPS), "--exit-step", "5",
+                 "--exit-rank", "1", "--grow-step", "6"],
+                extra_env={"HOROVOD_STALL_SHUTDOWN_TIME_SECONDS":
+                           str(PHASE10_STALL_S)})
+            raised = gl.get("RAISED", [])
+            sizes = [(f["round"], f["size"], f["rank"], f["source"])
+                     for f in gl["RESUME"]]
+            done = [f["digest"] for f in gl["DONE"]]
+            out["e"] = dict(cards=n, raised=raised, resumes=sizes,
+                            losses=got, done=done, twin=twin,
+                            exit=gl.get("EXIT"))
+            print(f"elastic (e): {n} cards; rank 1 exited at step "
+                  f"{gl['EXIT'][0]['step']}; the survivor raised "
+                  f"HorovodInternalError after {raised[0]['after'] if raised else '-'} s "
+                  f"(bound {PHASE10_STALL_S} s); rounds (round, size, rank, "
+                  f"source) {sizes}; losses "
+                  f"{ {k: v for k, v in sorted(got.items())} }; final "
+                  f"digests {[d[:16] for d in done]}, twin's "
+                  f"{twin_d['8'][:16]}; {took('e'):.1f} s")
+            need(len(raised) == 1 and raised[0]["step"] == "5"
+                 and float(raised[0]["after"]) <= PHASE10_STALL_S + 15,
+                 "phase 10 (e): the survivor did not raise within the "
+                 "bound")
+            need({s for _, s, _, _ in sizes} == {"1", "2"},
+                 "phase 10 (e): the job did not shrink to 1 and grow to 2")
+            need(all(got[k] == [twin[k][0]] * len(got[k]) for k in got)
+                 and sorted(got) == list(range(1, PHASE10_TWIN_STEPS + 1)),
+                 "phase 10 (e): the losses differ from the twin's")
+            need(len(done) == 2 and set(done) == {twin_d["8"]},
+                 "phase 10 (e): the final parameters differ from the "
+                 "twin's")
+    finally:
+        tmp.cleanup()
+        torch.backends.cudnn.deterministic, \
+            torch.backends.cudnn.benchmark = saved
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1887,6 +2344,8 @@ def main() -> int:
     lap("8 training API")
     observed = observed_path(agg["fwd"]["ms"] + agg["act_bwd"]["ms"])
     lap("9 observed path")
+    elastic_run = elastic_path()
+    lap("10 elastic and checkpointing")
     print(f"total: {time.perf_counter() - t0:.1f} s")
 
     src = "horovod_tpu_torch/csrc/"
@@ -1931,6 +2390,7 @@ def main() -> int:
                    "collectives_path": collectives,
                    "training_api_path": training,
                    "observed_path": observed,
+                   "elastic_path": elastic_run,
                    "phase_s": phase_s,
                    "nvidia_smi": smi}, f, indent=1)
     print(json.dumps(line))

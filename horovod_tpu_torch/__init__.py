@@ -21,14 +21,18 @@ is a span on the Chrome-trace timeline (HOROVOD_TIMELINE, or
 `hvd.start_timeline`), `horovod_tpu_torch.data.DeviceFeed` stages
 batches onto the card ahead of the step, and
 `horovod_tpu_torch.profiler.device_profile` reads the device's time by
-kernel category. The package imports neither JAX nor horovod_tpu.
+kernel category. `hvd.elastic` is elastic training (`@hvd.elastic.run`
+over a `TrainLoopState`; the launcher's --host-discovery-script mode),
+and `horovod_tpu_torch.ckpt` the async two-phase checkpointer with
+exactly-once resume. The package imports neither JAX nor horovod_tpu.
 """
 
 from horovod_tpu_torch.common.types import (  # noqa: F401
     Adasum, Average, Max, Min, Product, ReduceOp, Sum,
 )
 from horovod_tpu_torch.common.exceptions import (  # noqa: F401
-    DuplicateNameError, HorovodError, HorovodInternalError, KernelError,
+    CheckpointCorruptError, DuplicateNameError, HorovodError,
+    HorovodInternalError, HostsUpdatedInterrupt, KernelError,
     TensorShapeMismatchError,
 )
 from horovod_tpu_torch.core.topology import (  # noqa: F401
@@ -57,6 +61,8 @@ from horovod_tpu_torch.optim.functions import (  # noqa: F401
     allgather_object, broadcast_object, broadcast_optimizer_state,
     broadcast_parameters,
 )
+
+from horovod_tpu_torch import elastic  # noqa: F401,E402
 
 __version__ = "0.1.0"
 

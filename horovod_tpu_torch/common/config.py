@@ -1,7 +1,8 @@
 """Environment knobs read by the PyTorch package.
 
 A copy of the part of horovod_tpu/common/config.py that the port reads:
-the fusion threshold, the bucket cap and order, the collectives' modes
+the fusion threshold, the bucket cap and order, elastic mode and its
+collective timeout, the collectives' modes
 (hierarchical allreduce and allgather, the two-level split of
 HOROVOD_TPU_MESH_SHAPE, Adasum's vector halving, dynamic process sets),
 the two online tuners (HOROVOD_AUTOTUNE*, HOROVOD_BUCKET_AUTOTUNE*;
@@ -77,10 +78,20 @@ HOROVOD_COORDINATOR_ADDR = "HOROVOD_COORDINATOR_ADDR"
 HOROVOD_MPI_RANK_ENV = "HOROVOD_MPI_RANK_ENV"
 HOROVOD_MPI_LOCAL_RANK_ENV = "HOROVOD_MPI_LOCAL_RANK_ENV"
 HOROVOD_ELASTIC_ROUND = "HOROVOD_ELASTIC_ROUND"
+# Elastic mode (elastic/): set by the elastic launcher for its workers;
+# the seconds a reset waits for the driver's next round.
+HOROVOD_ELASTIC = "HOROVOD_ELASTIC"
+HOROVOD_ELASTIC_TIMEOUT = "HOROVOD_ELASTIC_TIMEOUT"
 
 DEFAULT_FUSION_THRESHOLD_BYTES = 4 * 1024 * 1024
 DEFAULT_BUCKET_CAP_BYTES = 4 * 1024 * 1024
 DEFAULT_CACHE_CAPACITY = 1024
+DEFAULT_ELASTIC_TIMEOUT_SECONDS = 600.0
+# In elastic mode a collective that has not completed after this many
+# seconds raises (the process group's timeout) where
+# HOROVOD_STALL_SHUTDOWN_TIME_SECONDS does not set it: a dead peer under
+# NCCL hangs rather than fails (core/topology.py).
+DEFAULT_ELASTIC_COLLECTIVE_TIMEOUT_SECONDS = 60.0
 
 
 def _env_bool(name: str, default: bool = False) -> bool:
@@ -166,6 +177,10 @@ class Config:
     # The Chrome-trace timeline that init() starts on rank 0.
     timeline_path: str = ""
     timeline_mark_cycles: bool = False
+    # Elastic mode, and the stall bound that becomes the process group's
+    # timeout there (0: DEFAULT_ELASTIC_COLLECTIVE_TIMEOUT_SECONDS).
+    elastic: bool = False
+    stall_shutdown_seconds: float = 0.0
 
     # Topology (launcher-injected); None where the env does not say.
     rank: Optional[int] = None
@@ -211,6 +226,9 @@ class Config:
                 HOROVOD_BUCKET_AUTOTUNE_MAX_ADJUSTMENTS, 4),
             timeline_path=os.environ.get(HOROVOD_TIMELINE, ""),
             timeline_mark_cycles=_env_bool(HOROVOD_TIMELINE_MARK_CYCLES),
+            elastic=_env_bool(HOROVOD_ELASTIC),
+            stall_shutdown_seconds=_env_float(
+                HOROVOD_STALL_SHUTDOWN_TIME_SECONDS, 0.0),
             rank=_env_or_mpi(HOROVOD_RANK, HOROVOD_MPI_RANK_ENV),
             size=_opt_int(HOROVOD_SIZE),
             local_rank=_env_or_mpi(HOROVOD_LOCAL_RANK,

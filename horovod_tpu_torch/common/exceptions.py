@@ -8,7 +8,29 @@ class HorovodError(Exception):
 
 
 class HorovodInternalError(HorovodError):
-    """A collective failed or the framework is in an unusable state."""
+    """A collective failed or the framework is in an unusable state.
+
+    In elastic mode this triggers the restore of the last commit and a
+    re-join (elastic/__init__.py run)."""
+
+
+class HostsUpdatedInterrupt(HorovodError):
+    """Raised inside elastic training when the driver started a new
+    round (the host set changed); `skip_sync` says whether the state
+    sync after the re-join may be skipped."""
+
+    def __init__(self, skip_sync: bool = False):
+        super().__init__()
+        self.skip_sync = skip_sync
+
+
+class CheckpointCorruptError(HorovodError):
+    """A checkpoint directory failed verification: no `.done` commit
+    marker, an unreadable or partial manifest, or leaf files absent or
+    truncated (ckpt/, checkpoint.py). Restore paths quarantine and fall
+    back on it. Not a HorovodInternalError: the elastic retry loop must
+    not re-join over a corrupt artifact, which it would read again every
+    round."""
 
 
 class KernelError(HorovodError):

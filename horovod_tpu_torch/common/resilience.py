@@ -159,6 +159,20 @@ def kv_retry_policy(**overrides) -> RetryPolicy:
     return RetryPolicy.from_env("HOROVOD_KV_RETRY", **merged)
 
 
+# Discovery scripts flake for longer (cloud API hiccups); cap higher and
+# let the elastic driver's loop re-arm the schedule
+# (elastic/driver.py ElasticDriver._discover_loop).
+DISCOVERY_RETRY_DEFAULTS = dict(max_attempts=6, base_delay=0.5,
+                                max_delay=10.0, deadline=60.0)
+
+
+def discovery_retry_policy(**overrides) -> RetryPolicy:
+    """The host-discovery policy (env prefix HOROVOD_DISCOVERY_RETRY)."""
+    merged = dict(DISCOVERY_RETRY_DEFAULTS)
+    merged.update(overrides)
+    return RetryPolicy.from_env("HOROVOD_DISCOVERY_RETRY", **merged)
+
+
 class CircuitBreaker:
     """Closed → open → half-open breaker for control-plane targets.
 

@@ -113,7 +113,7 @@ class ProcessSetTable:
                 # point-to-point exchange between some of them (Adasum).
                 from horovod_tpu_torch.core import topology
                 dist.all_reduce(torch.zeros(1, device=topology.device()),
-                                group=ps.group)
+                                group=ps.group, async_op=True).wait()
             return sid
 
     def remove(self, ps: ProcessSet) -> None:

@@ -34,6 +34,28 @@ ParameterManager, else under HOROVOD_BUCKET_AUTOTUNE the
 OnlineBucketTuner (core/autotune.py): both move the fusion threshold,
 so at most one runs; shutdown drops it.
 
+Elastic mode (HOROVOD_ELASTIC=1, set by the elastic launcher for its
+workers; elastic/): the launcher hosts one TCPStore per round and
+publishes its address as HOROVOD_COORDINATOR_ADDR, which every rank
+joins as a client, so the death of any worker leaves the store up. A
+dead peer under NCCL does not fail a collective, it hangs it, and by
+default torch's NCCL watchdog then tears the whole process down, which
+loses the in-memory state elastic exists to keep. So in elastic mode
+init gives the process group a finite timeout
+(HOROVOD_STALL_SHUTDOWN_TIME_SECONDS where set, else
+DEFAULT_ELASTIC_COLLECTIVE_TIMEOUT_SECONDS, 60 s), and sets, where the
+caller has not, TORCH_NCCL_BLOCKING_WAIT=1 (`Work.wait()` blocks the
+host until the collective completes or times out, aborts the
+communicator and raises in the waiting thread; every collective of the
+port waits on its Work) and TORCH_NCCL_ASYNC_ERROR_HANDLING=0
+(the watchdog does not kill the process). ops/collectives.py turns
+that error, and gloo's "Connection closed by peer", into
+HorovodInternalError. `shutdown(abort=True)`, the elastic reset's,
+aborts the NCCL communicators (`_abort_process_group`) rather than
+destroying them, which can hang on a broken one, and `reinit()` joins
+again with the arguments of the last init. The global process set is
+rebuilt at every init; sets registered at init or after are not.
+
 With HOROVOD_TIMELINE set, init starts the Chrome-trace timeline
 (profiler/timeline.py) on rank 0, as the JAX package does: co-hosted
 ranks sharing the path would overwrite each other's file, and
@@ -95,6 +117,8 @@ class Hier:
 
 _state = _State()
 _lock = threading.Lock()
+# (device, init_method) of the last successful init, for reinit().
+_last_init: Optional[Tuple[Optional[str], Optional[str]]] = None
 
 KV_SCOPE = "torch_coordinator"
 KV_WAIT_SECONDS = 300.0
@@ -139,6 +163,24 @@ def _kv_store(cfg: C.Config, rank: int, size: int
     host, _, port = addr.rpartition(":")
     return addr, dist.TCPStore(host, int(port), size, is_master=False,
                                timeout=timeout)
+
+
+def _elastic_timeout(cfg: C.Config) -> datetime.timedelta:
+    """The process group's timeout in elastic mode (module docstring),
+    after setting torch's NCCL error handling for it."""
+    os.environ.setdefault("TORCH_NCCL_BLOCKING_WAIT", "1")
+    os.environ.setdefault("TORCH_NCCL_ASYNC_ERROR_HANDLING", "0")
+    return datetime.timedelta(seconds=(
+        cfg.stall_shutdown_seconds if cfg.stall_shutdown_seconds > 0
+        else C.DEFAULT_ELASTIC_COLLECTIVE_TIMEOUT_SECONDS))
+
+
+def _round_store(addr: str, size: int, timeout: datetime.timedelta
+                 ) -> "dist.TCPStore":
+    """A client of the elastic launcher's store for this round."""
+    host, _, port = addr.rpartition(":")
+    return dist.TCPStore(host, int(port), size, is_master=False,
+                         timeout=timeout)
 
 
 def _note_no_effect(cfg: C.Config) -> None:
@@ -190,7 +232,7 @@ def _layout(size: int, row: Sequence[int], dev: torch.device
         return [list(row)]
     mine = torch.tensor(row, dtype=torch.int64, device=dev)
     rows = [torch.empty_like(mine) for _ in range(size)]
-    dist.all_gather(rows, mine)
+    dist.all_gather(rows, mine, async_op=True).wait()
     return [r.tolist() for r in rows]
 
 
@@ -232,9 +274,11 @@ def init(device: Optional[str] = None,
     process_sets: ProcessSet objects to register beyond the global one;
       every rank passes the same list.
     """
+    global _last_init
     with _lock:
         if _state.initialized:
             return
+        args = (device, init_method)
         cfg = C.Config.from_env()
         rank = cfg.rank if cfg.rank is not None else 0
         size = cfg.size if cfg.size is not None else 1
@@ -269,8 +313,15 @@ def init(device: Optional[str] = None,
         _note_no_effect(cfg)
         store_file = ""
         store = None
+        pg_kw = {}
+        if cfg.elastic:
+            pg_kw["timeout"] = _elastic_timeout(cfg)
         if init_method is None:
-            if cfg.coordinator_addr:
+            if cfg.elastic and cfg.coordinator_addr:
+                store = _round_store(cfg.coordinator_addr, size,
+                                     pg_kw["timeout"])
+                where = f"tcp://{cfg.coordinator_addr}"
+            elif cfg.coordinator_addr:
                 init_method = f"tcp://{cfg.coordinator_addr}"
             elif cfg.rendezvous_addr and size > 1:
                 addr, store = _kv_store(cfg, rank, size)
@@ -287,11 +338,11 @@ def init(device: Optional[str] = None,
                     f"init_method")
         if store is None:
             dist.init_process_group(backend, init_method=init_method,
-                                    rank=rank, world_size=size)
+                                    rank=rank, world_size=size, **pg_kw)
             where = init_method
         else:
             dist.init_process_group(backend, store=store, rank=rank,
-                                    world_size=size)
+                                    world_size=size, **pg_kw)
         layout = _layout(size, (local_size, cross_rank, local_rank), dev)
         split = _split(cfg, size, layout)
         hier = None
@@ -317,6 +368,7 @@ def init(device: Optional[str] = None,
         elif cfg.bucket_autotune:
             _state.bucket_tuner = autotune.OnlineBucketTuner(cfg)
         _state.initialized = True
+        _last_init = args
         for ps in process_sets or ():
             _state.process_set_table.register(ps)
         if cfg.timeline_path and rank == 0 and _state.timeline is None:
@@ -332,8 +384,10 @@ def init(device: Optional[str] = None,
                                      cfg.timeline_path, e)
 
 
-def shutdown() -> None:
-    """Leave the world and release the process group."""
+def shutdown(abort: bool = False) -> None:
+    """Leave the world and release the process group; with `abort`, an
+    NCCL world's communicators are aborted, not destroyed (the elastic
+    reset: a broken communicator can hang a destroy)."""
     with _lock:
         if not _state.initialized:
             return
@@ -342,10 +396,24 @@ def shutdown() -> None:
         if _state.timeline is not None:
             _state.timeline.stop()
         _state.process_set_table.clear()
-        dist.destroy_process_group()
+        c10d = dist.distributed_c10d
+        if abort and dist.get_backend() == "nccl" and \
+                hasattr(c10d, "_abort_process_group"):
+            c10d._abort_process_group()
+        else:
+            dist.destroy_process_group()
         if _state.store_file and os.path.exists(_state.store_file):
             os.unlink(_state.store_file)
         _state.__init__()
+
+
+def reinit() -> None:
+    """init() again with the device and init_method of the last init
+    (the elastic reset); the launcher's env says where the new world
+    meets."""
+    if _last_init is None:
+        raise HorovodError("reinit() before any successful hvd.init()")
+    init(*_last_init)
 
 
 def is_initialized() -> bool:

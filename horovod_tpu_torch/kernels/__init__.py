@@ -47,6 +47,8 @@ FLAGS = {name: NVCC_FLAGS + (["-fmad=false"] if name in CONV_SOURCES
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
 ptxas_log: Dict[str, str] = {}
+# nvcc runs this process started: an elastic reset must not move it.
+build_count = 0
 
 
 def _nvcc() -> str:
@@ -77,6 +79,8 @@ def _start(name: str):
            os.path.join(CSRC, f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
+    global build_count
+    build_count += 1
     return proc, tmp, out
 
 

@@ -147,7 +147,7 @@ def _vhdd(x: torch.Tensor, ps, p2: int, idx: int) -> torch.Tensor:
             table[idx // (2 * d)] = torch.stack(
                 [_dot(keep, recv), kk if bit == 0 else rr,
                  rr if bit == 0 else kk])
-        dist.all_reduce(table, group=group)
+        dist.all_reduce(table, group=group, async_op=True).wait()
         if core:
             dot, na, nb = table[idx // (2 * d)]
             ca, cb = _coeffs(dot, na, nb)
@@ -157,7 +157,8 @@ def _vhdd(x: torch.Tensor, ps, p2: int, idx: int) -> torch.Tensor:
         d *= 2
     seg = cur if core else torch.zeros_like(cur)
     rows: List[torch.Tensor] = [torch.empty_like(seg) for _ in range(k)]
-    dist.all_gather(rows, seg.contiguous(), group=group)
+    dist.all_gather(rows, seg.contiguous(), group=group,
+                    async_op=True).wait()
     combined = torch.cat([rows[_bitrev(j, levels)] for j in range(p2)])
     return combined[:n].reshape(shape).to(dtype)
 

@@ -6,7 +6,13 @@ forms, synchronize and poll, each over a process set.
 
 Every collective is issued with `async_op=True`; a `Handle` holds the
 `Work` and the output, `synchronize` waits on it and `poll` reports
-`Work.is_completed()`. An async handle holds its `name` until it is
+`Work.is_completed()`. The blocking forms, and the port's other
+collectives (sync-BN, Adasum, process sets, init), wait on the `Work`
+too and never call the synchronous form: under
+TORCH_NCCL_BLOCKING_WAIT only `Work.wait()` blocks the host until the
+collective completes or times out (torch 2.11's synchronous call
+returns at once), which is how a dead peer surfaces in elastic mode
+(core/topology.py). An async handle holds its `name` until it is
 synchronized: another operation with that name meanwhile raises
 DuplicateNameError. Every op takes `process_set=` (default the global
 set); a rank outside the set raises instead of joining.
@@ -44,6 +50,16 @@ perfscope's `comms` phase (profiler/perfscope.py). The window of an
 On a card both are host windows: the device may still be transferring
 when `wait()` returns.
 
+In elastic mode (HOROVOD_ELASTIC=1) a transport failure of a collective
+(a `torch.distributed.DistError`, or a message such as gloo's
+"Connection closed by peer" or NCCL's blocking-wait timeout) surfaces as
+HorovodInternalError, where the elastic retry loop catches it
+(`comm_failure_guard`, as the JAX package's `is_comm_failure` and
+`_execute`): in `Handle.wait` and around every instrumented window,
+which covers the blocking collectives, the bucket launches and their
+waits in `DistributedOptimizer.synchronize`. Outside elastic mode the
+error surfaces as it is.
+
 Not ported here: the consistency fingerprints (ROADMAP A13), the
 collectives' metrics and byte counters, and the stall watchdog (A13).
 """
@@ -60,7 +76,8 @@ import torch.distributed as dist
 
 from horovod_tpu_torch.common import types as T
 from horovod_tpu_torch.common.exceptions import (DuplicateNameError,
-                                                 HorovodError)
+                                                 HorovodError,
+                                                 HorovodInternalError)
 from horovod_tpu_torch.core import topology
 from horovod_tpu_torch.core.process_sets import ProcessSet, global_process_set
 from horovod_tpu_torch.ops import adasum, fusion
@@ -72,6 +89,42 @@ _all_gather_single = getattr(dist, "all_gather_single", None) \
     or dist.all_gather_into_tensor
 _reduce_scatter_single = getattr(dist, "reduce_scatter_single", None) \
     or dist.reduce_scatter_tensor
+
+
+# A dead peer does not always surface as a typed error: gloo raises a
+# plain RuntimeError ("... Connection closed by peer ..."), NCCL's
+# blocking wait one that names the timeout. Message markers classify
+# those (the JAX package's list, with NCCL's words).
+_COMM_FAILURE_MARKERS = (
+    "connection closed by peer", "connection reset", "connection refused",
+    "gloo", "all-reduce failed", "broken pipe", "socket",
+    "coordination service", "heartbeat", "task is unhealthy",
+    "peer is unavailable", "deadline exceeded", "nccl", "timed out",
+    "communicator was aborted",
+)
+
+
+def is_comm_failure(e: BaseException) -> bool:
+    """True if `e` looks like a transport or peer failure rather than a
+    user error: the trigger for HorovodInternalError in elastic mode."""
+    if isinstance(e, HorovodInternalError):
+        return False  # already converted
+    if isinstance(e, dist.DistError):
+        return True
+    msg = str(e).lower()
+    return any(m in msg for m in _COMM_FAILURE_MARKERS)
+
+
+def _elastic() -> bool:
+    cfg = topology._state.config
+    return cfg is not None and cfg.elastic
+
+
+def comm_failure_guard(e: BaseException, what: str) -> None:
+    """Raise HorovodInternalError from `e` where elastic mode is on and
+    `e` is a transport failure; else return (the caller re-raises)."""
+    if isinstance(e, Exception) and _elastic() and is_comm_failure(e):
+        raise HorovodInternalError(f"{what} failed: {e}") from e
 
 
 class Handle:
@@ -93,6 +146,9 @@ class Handle:
                     self.work = None
                 if self._finish is not None:
                     self.out = self._finish(self.out)
+            except Exception as e:
+                comm_failure_guard(e, f"collective {self.name or ''}")
+                raise
             finally:
                 self._done = True
                 release_inflight_name(self.name)
@@ -124,6 +180,13 @@ def release_inflight_name(name: Optional[str]) -> None:
     if name:
         with _inflight_lock:
             _inflight_names.discard(name)
+
+
+def forget_inflight_names() -> None:
+    """Release every claimed name (the elastic reset: the handles of a
+    world that is gone are never synchronized)."""
+    with _inflight_lock:
+        _inflight_names.clear()
 
 
 def _named(name: Optional[str], start: Callable[[], Handle]) -> Handle:
@@ -163,7 +226,7 @@ class instrument:
             self.t0 = time.perf_counter()
         return self
 
-    def __exit__(self, *exc) -> bool:
+    def __exit__(self, exc_type, exc, tb) -> bool:
         if self.timed:
             dt = time.perf_counter() - self.t0
         if self.tl is not None:
@@ -171,6 +234,8 @@ class instrument:
         if self.timed:
             nested = self.ps.attributed_marker() - self.attr_mark
             self.ps.attribute("comms", dt - nested)
+        if exc is not None:
+            comm_failure_guard(exc, f"{self.activity} {self.name}")
         return False
 
 
@@ -552,7 +617,7 @@ def _exchange_rows(row: Sequence[int], ps: ProcessSet) -> List[List[int]]:
     mine = torch.tensor(list(row), dtype=torch.int64,
                         device=topology.device())
     rows = mine.new_empty(ps.size() * mine.numel())
-    _all_gather_single(rows, mine, group=ps.group)
+    _all_gather_single(rows, mine, group=ps.group, async_op=True).wait()
     return rows.view(ps.size(), -1).tolist()
 
 
@@ -833,7 +898,8 @@ def broadcast_(tensor: torch.Tensor, root_rank: int,
     ps = _resolve(process_set)
     ps.rank_index(root_rank)
     with instrument("broadcast", "BROADCAST"):
-        dist.broadcast(tensor, src=root_rank, group=ps.group)
+        dist.broadcast(tensor, src=root_rank, group=ps.group,
+                       async_op=True).wait()
     return tensor
 
 
@@ -843,7 +909,7 @@ def barrier(process_set: Optional[ProcessSet] = None) -> None:
     ps = _resolve(process_set)
     with instrument("barrier", "BARRIER"):
         one = torch.ones(1, dtype=torch.int32, device=topology.device())
-        dist.all_reduce(one, group=ps.group)
+        dist.all_reduce(one, group=ps.group, async_op=True).wait()
         one.item()
 
 

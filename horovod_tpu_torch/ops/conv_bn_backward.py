@@ -52,7 +52,8 @@ def group_sum(rows: Sequence[torch.Tensor], group) -> Tuple[torch.Tensor, ...]:
     if group is None:
         return tuple(rows)
     both = torch.stack(list(rows))
-    dist.all_reduce(both, group=group)
+    from horovod_tpu_torch.ops.sync_batch_norm import _all_reduce
+    _all_reduce(both, group)
     return tuple(both.unbind(0))
 
 

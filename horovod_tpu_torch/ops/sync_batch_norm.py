@@ -10,6 +10,8 @@ horovod_tpu/ops/sync_batch_norm.py. The formula is not torch's
   * the normalise runs in x.dtype: inv = rsqrt(var + eps) cast to x.dtype.
 With a process group, the per-rank mean and E[x²] are averaged over the
 group (never the var), in one all_reduce of a stacked (2, C) tensor.
+In elastic mode a transport failure of that all-reduce is a
+HorovodInternalError, as in ops/collectives.py.
 """
 
 from __future__ import annotations
@@ -18,6 +20,17 @@ from typing import Optional, Tuple
 
 import torch
 import torch.distributed as dist
+
+
+def _all_reduce(x: torch.Tensor, group) -> None:
+    """In-place sum over `group`; in elastic mode a transport failure is
+    a HorovodInternalError (ops/collectives.py comm_failure_guard)."""
+    try:
+        dist.all_reduce(x, group=group, async_op=True).wait()
+    except Exception as e:
+        from horovod_tpu_torch.ops.collectives import comm_failure_guard
+        comm_failure_guard(e, "sync batch norm all-reduce")
+        raise
 
 
 class _AllReduceMean(torch.autograd.Function):
@@ -29,13 +42,13 @@ class _AllReduceMean(torch.autograd.Function):
     def forward(ctx, x, group):
         ctx.group = group
         y = x.clone()
-        dist.all_reduce(y, group=group)
+        _all_reduce(y, group)
         return y / dist.get_world_size(group)
 
     @staticmethod
     def backward(ctx, g):
         g = g.clone()
-        dist.all_reduce(g, group=ctx.group)
+        _all_reduce(g, ctx.group)
         return g / dist.get_world_size(ctx.group), None
 
 

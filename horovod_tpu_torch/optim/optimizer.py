@@ -425,6 +425,15 @@ class DistributedOptimizer:
         finally:
             scope.step_boundary()
 
+    def abandon_step(self) -> None:
+        """Forget a step that failed part-way (a collective raised in
+        elastic mode): its in-flight buckets, the gradients counted
+        toward them, and the step's launcher, which holds the old
+        world's size. The elastic restore calls it; the next step plans
+        from the world in force."""
+        self._reset()
+        self._synchronized = False
+
     def zero_grad(self, set_to_none: bool = True):
         return self.opt.zero_grad(set_to_none=set_to_none)
 

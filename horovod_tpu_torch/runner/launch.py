@@ -15,9 +15,18 @@ Usage:
   python -m horovod_tpu_torch.runner.launch -np 4 python train.py
   python -m horovod_tpu_torch.runner.launch -np 8 -H h1:4,h2:4 python train.py
 
+Elastic mode: with --host-discovery-script the launcher runs the elastic
+driver (elastic/driver.py run_elastic): it starts one worker per
+discovered slot (--min-np, --max-np, --slots-per-host), publishes each
+round's assignment and TCPStore through the rendezvous KV, blacklists
+failed hosts for --blacklist-cooldown-range, and gives up after
+--reset-limit resets or --elastic-timeout seconds without hosts.
+--stall-check-shutdown-time-seconds is the bound after which a worker's
+collective raises there (HOROVOD_STALL_SHUTDOWN_TIME_SECONDS, the
+process group's timeout: core/topology.py).
 Not ported yet, and refused with a HorovodError naming the ROADMAP item
-rather than ignored: elastic mode (--host-discovery-script and its
-flags, A10) and the stall inspector (A13). The --autotune flags set the
+rather than ignored: the stall inspector (A13), and so the stall flags
+outside elastic mode. The --autotune flags set the
 HOROVOD_AUTOTUNE* knobs that the workers' ParameterManager reads
 (core/autotune.py); --timeline-filename and --timeline-mark-cycles set
 HOROVOD_TIMELINE and HOROVOD_TIMELINE_MARK_CYCLES, and rank 0 writes
@@ -169,7 +178,7 @@ def build_parser() -> argparse.ArgumentParser:
                       help="alias for --launcher jsrun")
     p.add_argument("--mpi-args", default=None,
                    help="extra args passed through to mpirun")
-    # Elastic (not ported yet: ROADMAP A10)
+    # Elastic (elastic/driver.py)
     p.add_argument("--host-discovery-script", default=None,
                    help="elastic mode: script printing 'host:slots' lines")
     p.add_argument("--min-np", "--min-num-proc", dest="min_num_proc",
@@ -246,21 +255,13 @@ def unported_flags(args: argparse.Namespace) -> List[str]:
     """The flags given whose subsystem the port does not have yet, each
     as "<flag> (ROADMAP <item>)"."""
     given = [
-        ("--host-discovery-script", args.host_discovery_script, "A10"),
-        ("--min-np", args.min_num_proc is not None, "A10"),
-        ("--max-np", args.max_num_proc is not None, "A10"),
-        ("--slots-per-host", args.slots_per_host is not None, "A10"),
-        ("--reset-limit", args.reset_limit is not None, "A10"),
-        ("--blacklist-cooldown-range",
-         args.blacklist_cooldown_range is not None, "A10"),
-        # elastic-only, with defaults: refused when set to anything else
-        ("--elastic-timeout", args.elastic_timeout != 600, "A10"),
-        ("--start-timeout", args.start_timeout != 600, "A10"),
         ("--stall-check", args.no_stall_check is False, "A13"),
         ("--stall-check-warning-time-seconds",
          args.stall_check_warning_time_seconds is not None, "A13"),
+        # in elastic mode it bounds a worker's collectives
         ("--stall-check-shutdown-time-seconds",
-         args.stall_check_shutdown_time_seconds is not None, "A13"),
+         args.stall_check_shutdown_time_seconds is not None
+         and not args.host_discovery_script, "A13"),
     ]
     return [f"{flag} (ROADMAP {item})" for flag, on, item in given if on]
 
@@ -685,6 +686,16 @@ def run_commandline(argv: Optional[List[str]] = None) -> int:
     if not command:
         print("no training command given", file=sys.stderr)
         return 2
+
+    if args.host_discovery_script:
+        if args.stage_dir:
+            # hosts arrive later in elastic mode: staging at launch time
+            # cannot cover them, so the flag is static-only
+            print(f"{PROG}: --stage-dir only applies to static launches; "
+                  f"ignored in elastic mode (hosts discovered later would "
+                  f"never be staged)", file=sys.stderr)
+        from horovod_tpu_torch.elastic.driver import run_elastic
+        return run_elastic(args, command, args_to_env(args))
 
     np = args.num_proc
     hosts = args.hosts

@@ -439,10 +439,61 @@ def test_worker_env_names_match_jax():
     (["--stall-check-warning-time-seconds", "5"], "A13"),
 ])
 def test_unported_flags_raise_naming_their_item(flags, item):
+    """A13's flags are refused naming their item. A10's (elastic mode)
+    are ported and accepted: with a discovery script the job goes to
+    run_elastic with the flag's value, without one the elastic-only
+    flags ride a static launch, as the JAX launcher's do."""
+    with mock.patch.object(tlaunch, "launch_static",
+                           return_value=0) as ls, \
+            mock.patch("horovod_tpu_torch.elastic.driver.run_elastic",
+                       return_value=0) as rel:
+        if item == "A13":
+            with pytest.raises(HorovodError, match=f"ROADMAP {item}"):
+                tlaunch.run_commandline(["-np", "1", *flags, "--", "true"])
+            assert not ls.called and not rel.called
+            return
+        assert tlaunch.run_commandline(
+            ["-np", "1", *flags, "--", "true"]) == 0
+        elastic = "--host-discovery-script" in flags
+        assert rel.called == elastic and ls.called != elastic
+        if elastic:
+            args, command, env = rel.call_args[0]
+            assert args.host_discovery_script == "d.sh"
+            assert command == ["true"]
+        with mock.patch.object(jlaunch, "launch_static",
+                               return_value=0) as jls, \
+                mock.patch("horovod_tpu.elastic.driver.run_elastic",
+                           return_value=0) as jrel:
+            assert jlaunch.run_commandline(
+                ["-np", "1", *flags, "--", "true"]) == 0
+        assert (jrel.called, jls.called) == (rel.called, ls.called)
+        got = (rel if elastic else ls).call_args
+        want = (jrel if elastic else jls).call_args
+        tf = vars(got[0][0]) if elastic else got[1]
+        jf = vars(want[0][0]) if elastic else want[1]
+        for k in ("min_num_proc", "blacklist_cooldown_range",
+                  "elastic_timeout", "start_timeout"):
+            if k in jf:
+                assert tf[k] == jf[k], k
+
+
+def test_stall_shutdown_flag_bounds_elastic_collectives_only():
+    """--stall-check-shutdown-time-seconds reaches the workers'
+    HOROVOD_STALL_SHUTDOWN_TIME_SECONDS in elastic mode (their process
+    group's timeout); outside it the stall inspector is A13's."""
+    flag = ["--stall-check-shutdown-time-seconds", "20"]
     with mock.patch.object(tlaunch, "launch_static") as ls:
-        with pytest.raises(HorovodError, match=f"ROADMAP {item}"):
-            tlaunch.run_commandline(["-np", "1", *flags, "--", "true"])
+        with pytest.raises(HorovodError, match="ROADMAP A13"):
+            tlaunch.run_commandline(["-np", "1", *flag, "--", "true"])
     assert not ls.called
+    with mock.patch("horovod_tpu_torch.elastic.driver.run_elastic",
+                    return_value=0) as rel:
+        assert tlaunch.run_commandline(
+            ["--host-discovery-script", "d.sh", *flag, "--", "true"]) == 0
+    env = rel.call_args[0][2]
+    assert env[TC.HOROVOD_STALL_SHUTDOWN_TIME_SECONDS] == "20"
+    assert env == jlaunch.args_to_env(jlaunch.build_parser().parse_args(
+        ["--host-discovery-script", "d.sh", *flag, "true"]))
 
 
 @pytest.mark.parametrize("flags,knob,attr,value", [

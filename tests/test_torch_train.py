@@ -176,7 +176,10 @@ def test_package_imports_no_jax_at_runtime():
             "horovod_tpu_torch.runner.secret, "
             "horovod_tpu_torch.common.config, "
             "horovod_tpu_torch.common.hvd_logging, "
-            "horovod_tpu_torch.common.resilience;"
+            "horovod_tpu_torch.common.resilience, "
+            "horovod_tpu_torch.ckpt, horovod_tpu_torch.checkpoint, "
+            "horovod_tpu_torch.elastic, horovod_tpu_torch.elastic.driver, "
+            "horovod_tpu_torch.elastic.resnet_check;"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'horovod_tpu', 'optax')];"
             "print(bad); sys.exit(1 if bad else 0)")
