@@ -24,7 +24,11 @@ batches onto the card ahead of the step, and
 kernel category. `hvd.elastic` is elastic training (`@hvd.elastic.run`
 over a `TrainLoopState`; the launcher's --host-discovery-script mode),
 and `horovod_tpu_torch.ckpt` the async two-phase checkpointer with
-exactly-once resume. The package imports neither JAX nor horovod_tpu.
+exactly-once resume. Under HOROVOD_MESH ("dp=2,sp=2") init lays the
+ranks on named axes (`hvd.mesh_spec()`, `hvd.hybrid_mesh()`,
+`hvd.axis_process_set`), over which the transformer LM runs ring or
+Ulysses attention (`horovod_tpu_torch.parallel`). The package imports
+neither JAX nor horovod_tpu.
 """
 
 from horovod_tpu_torch.common.types import (  # noqa: F401
@@ -36,9 +40,9 @@ from horovod_tpu_torch.common.exceptions import (  # noqa: F401
     TensorShapeMismatchError,
 )
 from horovod_tpu_torch.core.topology import (  # noqa: F401
-    cross_rank, cross_size, device, init, is_homogeneous, is_initialized,
-    local_rank, local_size, rank, shutdown, size, start_timeline,
-    stop_timeline,
+    cross_rank, cross_size, device, hybrid_mesh, init, is_homogeneous,
+    is_initialized, local_rank, local_size, mesh_spec, rank, shutdown, size,
+    start_timeline, stop_timeline,
 )
 from horovod_tpu_torch.core.join import join, join_steps  # noqa: F401
 from horovod_tpu_torch.core.process_sets import (  # noqa: F401

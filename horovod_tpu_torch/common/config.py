@@ -61,6 +61,8 @@ HOROVOD_BUCKET_AUTOTUNE_MAX_ADJUSTMENTS = \
 # The two-level split as "dcn:A,ici:B" or "AxB": dcn is the cross level,
 # ici the local one (core/topology.py).
 HOROVOD_TPU_MESH_SHAPE = "HOROVOD_TPU_MESH_SHAPE"
+# The named-axis mesh ("dp=2,sp=2"; parallel/mesh.py); empty = pure dp.
+HOROVOD_MESH = "HOROVOD_MESH"
 
 # Launcher-injected topology and rendezvous (runner/launch.py).
 HOROVOD_RANK = "HOROVOD_RANK"
@@ -163,6 +165,7 @@ class Config:
     hierarchical_allgather: bool = False
     dynamic_process_sets: bool = False
     mesh_shape: str = ""
+    mesh_spec: str = ""
     # The online tuners (core/autotune.py): the GP search, and the
     # per-bucket tuner, which the JAX package runs on its bucket pipeline.
     autotune: bool = False
@@ -209,6 +212,7 @@ class Config:
             hierarchical_allgather=_env_bool(HOROVOD_HIERARCHICAL_ALLGATHER),
             dynamic_process_sets=_env_bool(HOROVOD_DYNAMIC_PROCESS_SETS),
             mesh_shape=os.environ.get(HOROVOD_TPU_MESH_SHAPE, ""),
+            mesh_spec=os.environ.get(HOROVOD_MESH, "").strip(),
             autotune=_env_bool(HOROVOD_AUTOTUNE),
             autotune_log=os.environ.get(HOROVOD_AUTOTUNE_LOG, ""),
             autotune_warmup_samples=_env_int(

@@ -13,8 +13,9 @@ asks of every process (add_process_set with identical ranks). A rank
 outside a set holds `GroupMember.NON_GROUP_MEMBER` for it, and the
 collectives refuse it (`included()`). After init, adding and removing
 sets needs HOROVOD_DYNAMIC_PROCESS_SETS=1; `init(process_sets=[...])`
-registers them at init without it. `axis_process_set` needs the
-HOROVOD_MESH hybrid mesh, which is not ported yet.
+registers them at init without it. `axis_process_set` returns the set
+of one axis of the HOROVOD_MESH mesh (parallel/mesh.py), whose groups
+init registered on every rank.
 """
 
 from __future__ import annotations
@@ -39,6 +40,7 @@ class ProcessSet:
             sorted(set(int(r) for r in ranks)) if ranks is not None else None)
         self.process_set_id: Optional[int] = None
         self.group = None  # dist group; None is the default (world) group
+        self.mesh_axis: Optional[str] = None  # set by axis_process_set
 
     def included(self) -> bool:
         """Is this process a member?"""
@@ -185,8 +187,30 @@ def get_process_set(process_set_id: int) -> ProcessSet:
 
 
 def axis_process_set(axis: str, rank: Optional[int] = None) -> ProcessSet:
-    """The set of a named axis of the HOROVOD_MESH hybrid mesh: not
-    ported yet."""
-    raise HorovodError(
-        "axis_process_set needs the HOROVOD_MESH hybrid mesh "
-        "(parallel/mesh.py), which is not ported yet (ROADMAP A11)")
+    """The process set of `rank`'s (default this rank's) sub-communicator
+    along a named axis of the HOROVOD_MESH mesh.
+
+    With HOROVOD_MESH="dp=2,sp=2", rank 3 sits at (dp=1, sp=1); its `dp`
+    set is ranks [1, 3] and its `sp` set ranks [2, 3]. The set bypasses
+    HOROVOD_DYNAMIC_PROCESS_SETS: it is a function of the mesh spec
+    every rank agreed on at init, which registered every axis group
+    already, so this only looks it up (the table dedupes identical rank
+    lists). Returns a handle tagged with `axis` that shares the
+    registered set's id and group, so two axes with the same ranks keep
+    their own `mesh_axis`."""
+    from horovod_tpu_torch.core import topology
+    spec = topology.mesh_spec()
+    if spec is None:
+        raise HorovodError(
+            "axis_process_set requires a hybrid mesh: set HOROVOD_MESH "
+            "(e.g. \"dp=2,tp=4\") before hvd.init()")
+    if rank is None:
+        rank = topology.rank()
+    group = spec.group_of(axis, rank)
+    reg = ProcessSet(group)
+    _table().register(reg)
+    handle = ProcessSet(group)
+    handle.process_set_id = reg.process_set_id
+    handle.group = reg.group
+    handle.mesh_axis = axis
+    return handle

@@ -29,7 +29,13 @@ or "AxB") overrides the split as the JAX package reshapes its mesh to
 init builds one local group per cross index and one cross group per
 local index, in rank order (ops/collectives.py uses them for the global
 set). `init(process_sets=[...])` registers sets beyond the global one
-(core/process_sets.py). Under HOROVOD_AUTOTUNE init builds the
+(core/process_sets.py). Under HOROVOD_MESH ("dp=2,sp=2", the JAX
+package's grammar; parallel/mesh.py) init parses the MeshSpec before
+joining the world and, once joined, builds the named-axis mesh: every
+rank registers every axis group as a process set, in the same order
+(`new_group` is collective over the world), before the sets passed to
+init; `mesh_spec()` and `hybrid_mesh()` return them (None without
+HOROVOD_MESH). Under HOROVOD_AUTOTUNE init builds the
 ParameterManager, else under HOROVOD_BUCKET_AUTOTUNE the
 OnlineBucketTuner (core/autotune.py): both move the fusion threshold,
 so at most one runs; shutdown drops it.
@@ -101,6 +107,8 @@ class _State:
     bucket_tuner: object = None  # core/autotune.OnlineBucketTuner
     joined: bool = False  # inside hvd.join(); guarded by _lock
     timeline: object = None  # profiler/timeline.Timeline while one runs
+    mesh_spec: object = None  # parallel/mesh.MeshSpec under HOROVOD_MESH
+    hybrid_mesh: object = None  # parallel/mesh.Mesh under HOROVOD_MESH
 
 
 @dataclasses.dataclass(frozen=True)
@@ -290,6 +298,9 @@ def init(device: Optional[str] = None,
             else -(-size // local_size)
         if cfg.mesh_shape:  # refuse a bad shape before joining the world
             parse_mesh_shape(cfg.mesh_shape, size)
+        from horovod_tpu_torch.parallel import mesh as mesh_mod
+        spec = mesh_mod.MeshSpec.parse(cfg.mesh_spec, size) \
+            if cfg.mesh_spec else None
         if device is None:
             if not torch.cuda.is_available():
                 raise HorovodError(
@@ -369,6 +380,9 @@ def init(device: Optional[str] = None,
             _state.bucket_tuner = autotune.OnlineBucketTuner(cfg)
         _state.initialized = True
         _last_init = args
+        if spec is not None:
+            _state.mesh_spec = spec
+            _state.hybrid_mesh = mesh_mod.build_mesh(spec)
         for ps in process_sets or ():
             _state.process_set_table.register(ps)
         if cfg.timeline_path and rank == 0 and _state.timeline is None:
@@ -466,6 +480,18 @@ def hier() -> Optional[Hier]:
     """The hierarchical split's groups, where HOROVOD_HIERARCHICAL_*
     asked for them and the world splits into a grid; else None."""
     return _require().hier
+
+
+def mesh_spec():
+    """The parsed HOROVOD_MESH MeshSpec (parallel/mesh.py), or None."""
+    return _require().mesh_spec
+
+
+def hybrid_mesh():
+    """The HOROVOD_MESH named-axis mesh (parallel/mesh.Mesh: rank r at
+    coordinate unravel(r, mesh_spec().sizes()), a process set per axis
+    group), or None when the world is purely data-parallel."""
+    return _require().hybrid_mesh
 
 
 def device() -> torch.device:

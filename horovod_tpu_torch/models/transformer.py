@@ -1,9 +1,15 @@
 """Transformer LM (counterpart of horovod_tpu/models/transformer.py).
 
 A decoder-only LM with pre-LN blocks, causal attention and a dense GELU
-FFN, trained data-parallel: each rank runs the whole model on its shard
-of the batch and `hvd.DistributedOptimizer` averages the gradients. The
-JAX package's tp/sp/pp/ep mesh axes all have size 1 here.
+FFN. Each rank runs the whole model on its shard of the tokens and
+`hvd.DistributedOptimizer` averages the gradients over the world. The
+batch is sharded over dp and, under HOROVOD_MESH with sp > 1, the
+sequence over sp: each rank of an sp group holds a contiguous slice of
+every sequence, adds the positions of its own slice, and attention
+crosses the slices by ring (attn="ring", parallel/ring_attention.py)
+or Ulysses (attn="ulysses", parallel/ulysses.py) attention over the
+group (`hvd.axis_process_set("sp")`). The JAX package's tp, pp and ep
+axes stay at size 1 (ROADMAP A11 part 2; `validate_cfg_for_mesh`).
 
 Parity points with the JAX model:
   * the parameter layout at the module is the JAX one: wq/wk/wv
@@ -13,12 +19,15 @@ Parity points with the JAX model:
     bias in x.dtype; GELU is the tanh form (jax.nn.gelu's default);
   * embedding plus position is added before the cast to cfg.dtype, the
     logits stay in cfg.dtype and the log-softmax runs in f32;
-  * attn="flash" runs ops/flash_attention.py (kernels 4–6 on the card),
-    attn="local" the exact blockwise_attention_reference.
+  * attn="flash" runs ops/flash_attention.py (kernels 4–6 on the card)
+    and refuses sp > 1, as shard-local attention would be wrong there;
+    attn="local" the exact blockwise_attention_reference; "ring" and
+    "ulysses" need the HOROVOD_MESH mesh (at sp = 1 they run on one
+    rank).
 
 Not ported yet, and refused with HorovodError rather than computed some
-other way: attn "ring" and "ulysses", num_experts > 0, microbatches > 1
-and remat=True (ROADMAP A11).
+other way: num_experts > 0, microbatches > 1 and remat=True (ROADMAP
+A11 part 2).
 """
 
 from __future__ import annotations
@@ -33,8 +42,12 @@ import torch.nn.functional as F
 
 from horovod_tpu_torch.common.exceptions import HorovodError
 from horovod_tpu_torch.ops.flash_attention import flash_attention
+from horovod_tpu_torch.parallel.mesh import mesh_axis_sizes
 from horovod_tpu_torch.parallel.ring_attention import (
-    blockwise_attention_reference)
+    blockwise_attention_reference, ring_attention)
+from horovod_tpu_torch.parallel.ulysses import ulysses_attention
+
+ATTN = ("ring", "ulysses", "flash", "local")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,7 +60,7 @@ class TransformerConfig:
     max_seq: int = 2048
     num_experts: int = 0          # 0 → dense FFN (the only one ported)
     capacity_factor: float = 2.0
-    attn: str = "ring"            # "flash" | "local" ported; see check()
+    attn: str = "ring"            # one of ATTN
     microbatches: int = 1
     dtype: Any = torch.float32
     remat: bool = False
@@ -59,14 +72,9 @@ class TransformerConfig:
 
     def check(self) -> None:
         """Raise HorovodError for what the port does not run yet."""
-        todo = "is not ported to PyTorch yet (ROADMAP A11)"
-        if self.attn in ("ring", "ulysses"):
-            raise HorovodError(f"attn={self.attn!r} needs a sequence-"
-                               f"parallel group and {todo}; use 'flash' "
-                               f"or 'local'")
-        if self.attn not in ("flash", "local"):
-            raise HorovodError(f"attn={self.attn!r}: choose 'flash' or "
-                               f"'local'")
+        todo = "is not ported to PyTorch yet (ROADMAP A11 part 2)"
+        if self.attn not in ATTN:
+            raise HorovodError(f"attn={self.attn!r}: choose from {ATTN}")
         if self.num_experts:
             raise HorovodError(f"num_experts > 0 (MoE FFN) {todo}")
         if self.microbatches > 1:
@@ -140,13 +148,36 @@ class Layer(nn.Module):
         self.w1, self.b1, self.w2, self.b2 = p(D, Fd), p(Fd), p(Fd, D), p(D)
 
 
-def _layer(x: torch.Tensor, lp: Layer, cfg: TransformerConfig):
-    """One transformer block on x (B, S, D)."""
+def _sp_set(cfg: TransformerConfig):
+    """This rank's sp process set, or None where there is no HOROVOD_MESH
+    mesh (the rank holds whole sequences)."""
+    from horovod_tpu_torch.core import process_sets, topology
+    if topology.is_initialized() and topology.mesh_spec() is not None:
+        return process_sets.axis_process_set("sp")
+    if cfg.attn in ("ring", "ulysses"):
+        raise HorovodError(
+            f"attn={cfg.attn!r} runs over the sp axis of the HOROVOD_MESH "
+            f"mesh: set HOROVOD_MESH (e.g. \"sp=4\") before hvd.init()")
+    return None
+
+
+def _layer(x: torch.Tensor, lp: Layer, cfg: TransformerConfig, sp=None):
+    """One transformer block on this rank's activations x (B, S_loc, D);
+    `sp` is the sequence-parallel process set (None: S_loc = S)."""
     h = _ln(x, lp.ln1_scale, lp.ln1_bias)
     # (B, H, S, dh), contiguous: flash_attention views it as (B·H, S, dh).
     q, k, v = (torch.einsum("bsd,dhk->bhsk", h, w).contiguous()
                for w in (lp.wq, lp.wk, lp.wv))
-    if cfg.attn == "flash":
+    if cfg.attn == "ring":
+        a = ring_attention(q, k, v, "sp", causal=True)
+    elif cfg.attn == "ulysses":
+        a = ulysses_attention(q, k, v, "sp", causal=True)
+    elif cfg.attn == "flash":
+        # Shard-local attention: silently wrong on a sharded sequence.
+        if sp is not None and sp.size() > 1:
+            raise HorovodError(
+                "attn='flash' requires sp=1 (shard-local attention); use "
+                "attn='ring' or 'ulysses' for sequence parallelism")
         a = flash_attention(q, k, v, causal=True)
     else:
         a = blockwise_attention_reference(q, k, v, causal=True)
@@ -172,21 +203,48 @@ class TransformerLM(nn.Module):
         self.load_state_dict(init(cfg, seed, device), assign=True)
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        """tokens (B, S) int → logits (B, S, V) in cfg.dtype."""
+        """This rank's tokens (B, S_loc) int → logits (B, S_loc, V) in
+        cfg.dtype. Under sp > 1 the tokens are slice sp_idx of each
+        sequence, at positions [sp_idx·S_loc, (sp_idx+1)·S_loc)."""
+        from horovod_tpu_torch.core import topology
+        sp = _sp_set(self.cfg)
         S = tokens.shape[1]
-        x = (self.embed[tokens] + self.pos[:S][None]).to(self.cfg.dtype)
+        i = sp.rank_index(topology.rank()) if sp is not None else 0
+        pos = self.pos[i * S:(i + 1) * S]
+        x = (self.embed[tokens] + pos[None]).to(self.cfg.dtype)
         for lp in self.layers:
-            x = _layer(x, lp, self.cfg)
+            x = _layer(x, lp, self.cfg, sp)
         x = _ln(x, self.lnf_scale, self.lnf_bias)
         return torch.matmul(x, self.unembed)
 
 
 def loss_fn(model: TransformerLM, tokens: torch.Tensor,
             targets: torch.Tensor) -> torch.Tensor:
-    """Mean next-token NLL over this rank's B·S tokens, log-softmax in
-    f32. Averaged over ranks by DistributedOptimizer (equal shards), its
-    gradient is that of the JAX `_local_loss`: the NLL summed over the
-    global batch over the global token count."""
+    """Mean next-token NLL over this rank's B·S_loc tokens, log-softmax
+    in f32. Averaged over the world by DistributedOptimizer (equal
+    shards over dp and sp), its gradient is that of the JAX
+    `_local_loss` summed by the gradient psums: the NLL summed over the
+    global batch over the global token count.
+
+    Under sp > 1 that holds only because the ring's (and Ulysses')
+    backward returns each k/v cotangent to the rank the block came from:
+    rank r's loss depends on the k and v of every rank before it, and
+    those ranks' wk and wv gradients must hold that dependence before
+    the all-reduce sums the ranks' gradients."""
     logp = torch.log_softmax(model(tokens).float(), dim=-1)
     nll = -torch.gather(logp, -1, targets[..., None])[..., 0]
     return nll.mean()
+
+
+def validate_cfg_for_mesh(cfg: TransformerConfig, mesh) -> None:
+    """Refuse a config the mesh (`hvd.hybrid_mesh()`, or None for a
+    data-parallel world) cannot run: tp, pp and ep above 1 are not
+    ported (ROADMAP A11 part 2); Ulysses needs heads % sp == 0."""
+    ax = mesh_axis_sizes(mesh) if mesh is not None else {}
+    for a in ("tp", "pp", "ep"):
+        if ax.get(a, 1) > 1:
+            raise HorovodError(
+                f"mesh axis {a}={ax[a]} is not ported to PyTorch yet "
+                f"(ROADMAP A11 part 2); the port runs dp and sp")
+    if cfg.attn == "ulysses" and cfg.n_heads % ax.get("sp", 1):
+        raise HorovodError("config/mesh mismatch: heads/tp % sp for ulysses")

@@ -1,7 +1,13 @@
 """Gradient compression (counterpart of horovod_tpu/ops/compression.py):
 `none`, `fp16` (what `--fp16-allreduce` chooses), `bf16`, and
 `ThresholdedCompressor`, which compresses only tensors of at least
-`min_bytes`."""
+`min_bytes`.
+
+A compressor is applied to each gradient on its own, before any
+bucketing, as in the JAX package: whether a tensor is compressed is a
+property of that tensor, never of the bucket it is packed into.
+`wire_dtype` says what a tensor of a given dtype and size travels in,
+which is what the fusion planner keys its buckets on."""
 
 from __future__ import annotations
 
@@ -20,11 +26,6 @@ class Compressor:
     @staticmethod
     def decompress(tensor: torch.Tensor, ctx: Any) -> torch.Tensor:
         raise NotImplementedError
-
-    @classmethod
-    def wire_dtype(cls, dtype: torch.dtype) -> torch.dtype:
-        """The dtype a tensor of `dtype` travels in."""
-        return cls.compress(torch.empty(0, dtype=dtype))[0].dtype
 
 
 class NoneCompressor(Compressor):
@@ -84,11 +85,14 @@ class ThresholdedCompressor(Compressor):
     def decompress(self, tensor, ctx):
         return self.inner.decompress(tensor, ctx)
 
-    def wire_dtype(self, dtype: torch.dtype) -> torch.dtype:
-        """The dtype buckets are planned in: the tensor's own, since
-        whether a message is compressed depends on its size
-        (DistributedOptimizer decides it for each packed bucket)."""
-        return dtype
+
+def wire_dtype(compression, dtype: torch.dtype, numel: int) -> torch.dtype:
+    """The dtype a tensor of `dtype` and `numel` elements travels in under
+    `compression` (a Compressor class or instance): what its `compress`
+    makes of a storage-less tensor of that size, so a size threshold
+    answers for this tensor."""
+    meta = torch.empty(numel, dtype=dtype, device="meta")
+    return compression.compress(meta)[0].dtype
 
 
 class Compression:

@@ -5,14 +5,18 @@ horovod_tpu/optim/optimizer.py DistributedOptimizer).
 Two ways to reduce, as in the reference:
 - the hook path (the default; `groups` None and op not Adasum): the
   parameters are planned into buckets with `plan_buckets(reverse=True)`
-  at min(HOROVOD_FUSION_THRESHOLD, HOROVOD_BUCKET_CAP), on the wire
-  dtype of the compression. A post-accumulate-grad hook on each
-  parameter counts the gradients each bucket still waits for; when the
-  last one arrives the bucket is packed and its collective starts, so
-  buckets go out in backward-production order while the backward pass
-  runs. `step()` waits on every bucket and copies the results back into
-  each `.grad`. Min, Max and Product are elementwise and ride the
-  buckets too;
+  at min(HOROVOD_FUSION_THRESHOLD, HOROVOD_BUCKET_CAP), each on the
+  dtype it travels in: the compression is decided for each gradient on
+  its own (a thresholded compressor tests each tensor's bytes, as the
+  reference compresses every leaf before bucketing), so compressed and
+  uncompressed gradients fill separate buckets of one dtype each. A
+  post-accumulate-grad hook on each parameter counts the gradients each
+  bucket still waits for; when the last one arrives its members are
+  compressed, packed, and the bucket's collective starts, so buckets go
+  out in backward-production order while the backward pass runs.
+  `step()` waits on every bucket, decompresses each gradient and copies
+  it back into its `.grad`. Min, Max and Product are elementwise and
+  ride the buckets too;
 - the step-time path (`groups` given, or op Adasum): at `step()`, one
   `grouped_allreduce` for each group of `_group_plan`. Adasum's dot
   products are per tensor, so it reduces tensor by tensor and never over
@@ -60,7 +64,9 @@ global axis) or the process set's id.
 
 from __future__ import annotations
 
+import functools
 import time
+import weakref
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -70,7 +76,7 @@ from horovod_tpu_torch.common import types as T
 from horovod_tpu_torch.core import topology
 from horovod_tpu_torch.core.process_sets import ProcessSet, global_process_set
 from horovod_tpu_torch.ops import collectives, fusion
-from horovod_tpu_torch.ops.compression import Compression
+from horovod_tpu_torch.ops.compression import Compression, wire_dtype
 from horovod_tpu_torch.profiler import perfscope
 
 
@@ -117,6 +123,17 @@ def group_plan(groups, dense: List[torch.Tensor]
     if rest:
         out.append(rest)
     return out
+
+
+def _post_accumulate_hook(ref, p: torch.Tensor) -> None:
+    """A parameter's post-accumulate-grad hook. The parameter holds it in
+    C++, where the garbage collector cannot follow it, so it reaches its
+    optimizer through a weak reference: a strong one would keep the
+    optimizer, and through it the parameters, their gradients and the
+    wrapped optimizer's state, alive for as long as the process runs."""
+    opt = ref()
+    if opt is not None:
+        opt._hook(p)
 
 
 class DistributedOptimizer:
@@ -174,11 +191,17 @@ class DistributedOptimizer:
         self._reset()
         if self.hooked:
             self._replan()
-            self._hooks = [p.register_post_accumulate_grad_hook(self._hook)
+            hook = functools.partial(_post_accumulate_hook, weakref.ref(self))
+            self._hooks = [p.register_post_accumulate_grad_hook(hook)
                            for p in params]
 
     def __getattr__(self, name):  # param_groups, state, ...
         return getattr(self.opt, name)
+
+    def __del__(self):
+        # Parameters that outlive this optimizer drop its hooks.
+        for h in self.__dict__.get("_hooks", ()):
+            h.remove()
 
     # ------------------------------------------------------------ plans
 
@@ -194,7 +217,8 @@ class DistributedOptimizer:
         dense = [i for i in range(len(self.params)) if i not in self._sparse]
         return dense, fusion.plan_buckets(
             [(tuple(self.params[i].shape),
-              self.compression.wire_dtype(self.params[i].dtype))
+              wire_dtype(self.compression, self.params[i].dtype,
+                         self.params[i].numel()))
              for i in dense], threshold, reverse=True)
 
     def _replan(self) -> None:
@@ -223,7 +247,8 @@ class DistributedOptimizer:
 
     def _reset(self) -> None:
         self._pending = [len(m) for m in self._members]
-        self._inflight: dict = {}  # bucket index -> (Handle, ctx)
+        self._inflight: dict = {}  # bucket index -> Handle
+        self._wires: dict = {}  # param index -> compress(gradient)
         self._start = None  # the step's collective launcher
         self._timer: Optional[collectives.BucketTimer] = None
         self._t_first = 0.0
@@ -288,21 +313,27 @@ class DistributedOptimizer:
         # A gradient that arrived sparse rides as zeros this once.
         return torch.zeros_like(self.params[i]) if g.is_sparse else g
 
+    def _wire(self, i: int):
+        """(wire tensor, ctx) of gradient i, compressed once a step, when
+        the first bucket that holds it (or a chunk of it) launches."""
+        if i not in self._wires:
+            self._wires[i] = self.compression.compress(self._dense_grad(i))
+        return self._wires[i]
+
     def _launch(self, bi: int) -> None:
         with collectives.instrument(f"bucketed_allreduce/b{bi}",
                                     "ALLREDUCE"):
             if self._start is None:
                 self._begin()
-            flat = fusion.pack(self.plan[bi], {i: self._dense_grad(i)
+            wire = fusion.pack(self.plan[bi], {i: self._wire(i)[0]
                                                for i in self._members[bi]})
-            wire, ctx = self.compression.compress(flat)
             start = self._start
             if self._timer is not None:
                 h = self._timer.launch(wire.numel() * wire.element_size(),
                                        lambda: start(wire))
             else:
                 h = start(wire)
-        self._inflight[bi] = (h, ctx)
+        self._inflight[bi] = h
 
     def _prepare_grads(self) -> List[int]:
         """Zero gradients for parameters the loss did not reach (autodiff
@@ -337,13 +368,23 @@ class DistributedOptimizer:
         for bi in range(len(self.plan)):
             if bi not in self._inflight:
                 self._launch(bi)
-        outs = {i: (self.params[i].grad.view(-1) if i not in sparse
-                    else self.params[i].new_empty(self.params[i].numel()))
-                for members in self._members for i in members}
+        # A gradient sent as it is (its wire tensor is the .grad itself)
+        # is reduced in place; the others land in a wire-dtype buffer,
+        # decompressed into .grad below (sparse ones are dropped).
+        outs = {}
+        for members in self._members:
+            for i in members:
+                w, _ = self._wire(i)
+                g = self.params[i].grad
+                outs[i] = g.view(-1) if w is g and i not in sparse \
+                    else w.new_empty(w.numel())
         for bi, b in enumerate(self.plan):
-            h, ctx = self._inflight[bi]
-            fusion.unpack(b, self.compression.decompress(h.wait(), ctx),
-                          outs)
+            fusion.unpack(b, self._inflight[bi].wait(), outs)
+        for i, out in outs.items():
+            g = self.params[i].grad
+            if i not in sparse and out.data_ptr() != g.data_ptr():
+                g.copy_(self.compression.decompress(
+                    out.view(g.shape), self._wires[i][1]))
         self._reduce_sparse(sparse)
         self.collectives_per_step = len(self.plan) + 2 * len(sparse)
         nbytes = self.plan_bytes  # the plan may change below

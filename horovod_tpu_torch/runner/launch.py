@@ -553,6 +553,10 @@ def launch_static(np: int, host_spec: str, command: List[str],
                 print(f"{PROG}: NIC discovery failed ({e}); using {ip}",
                       file=sys.stderr)
         base_env = dict(extra_env)
+        # A remote worker's env is base_env only: carry the job's mesh
+        # (HOROVOD_MESH, parallel/mesh.py) to every host.
+        if os.environ.get(C.HOROVOD_MESH):
+            base_env.setdefault(C.HOROVOD_MESH, os.environ[C.HOROVOD_MESH])
         base_env.update(rdv.worker_env(ip))
         base_env.update({
             C.HOROVOD_CONTROLLER: CONTROLLER,

@@ -20,8 +20,6 @@ real world sees, since each rank rounds its scaled tensor to bf16
 before it goes on the wire.
 """
 
-import multiprocessing as mp
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -30,6 +28,7 @@ import torch
 from jax.sharding import Mesh, PartitionSpec as P
 
 import torch_collective_worker
+from torch_world_worker import spawn_world
 from horovod_tpu.common import types as JT
 from horovod_tpu.ops import collectives as jcoll
 from horovod_tpu_torch.ops import collectives as tcoll
@@ -75,20 +74,11 @@ def _bits(a: np.ndarray) -> np.ndarray:
 
 
 def _spawn(tmp_path, inputs):
-    ctx = mp.get_context("spawn")
     store = str(tmp_path / "store")
     outs = [str(tmp_path / f"rank{r}.npz") for r in range(K)]
-    procs = [ctx.Process(target=torch_collective_worker.run,
-                         args=(r, K, store, inputs, outs[r]))
-             for r in range(K)]
-    for p in procs:
-        p.start()
-    for p in procs:
-        p.join(timeout=120)
-    for p in procs:
-        if p.is_alive():
-            p.kill()
-    assert [p.exitcode for p in procs] == [0] * K
+    spawn_world(torch_collective_worker.run,
+                [(r, K, store, inputs, outs[r]) for r in range(K)],
+                tmp_path, deadline=120)
     return [dict(np.load(o)) for o in outs]
 
 

@@ -393,3 +393,43 @@ def test_world_check_of_the_card_runs_on_gloo():
         # its first step: the bucket it rode as zeros, two allgathers
         assert r["sparse"]["collectives"] == 3
         assert r["tuner"] == res[0]["tuner"]
+
+
+def test_c7_dropped_optimizer_frees_its_state():
+    """Fault C7 (ROADMAP §C): the gradient hooks, which the parameters
+    hold in C++ where the garbage collector cannot follow them, held the
+    optimizer strongly, so a dropped DistributedOptimizer kept its
+    parameters, gradients and wrapped optimizer's state for good (the
+    flagship LM: 5.99 GB a dropped optimizer on an H100). Dropped, it is
+    freed and its hooks leave the parameters; a new optimizer over the
+    same model reduces as before."""
+    import gc
+    import weakref
+
+    import horovod_tpu_torch as hvd
+    hvd.init(device="cpu")
+    try:
+        model = torch.nn.Linear(4, 3)
+
+        def step(opt):
+            opt.zero_grad()
+            model(torch.ones(2, 4)).sum().backward()
+            opt.step()
+
+        opt = DistributedOptimizer(torch.optim.Adam(model.parameters()),
+                                   named_parameters=model.named_parameters())
+        step(opt)
+        state = weakref.ref(opt.opt.state[model.weight]["exp_avg"])
+        ref = weakref.ref(opt)
+        del opt
+        gc.collect()
+        assert ref() is None and state() is None
+        assert all(not p._post_accumulate_grad_hooks
+                   for p in model.parameters())
+        opt = DistributedOptimizer(torch.optim.SGD(model.parameters(), 0.1),
+                                   named_parameters=model.named_parameters())
+        step(opt)
+        assert opt.collectives_per_step == 1
+        np.testing.assert_array_equal(model.bias.grad.numpy(), [2.0] * 3)
+    finally:
+        hvd.shutdown()

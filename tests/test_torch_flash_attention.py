@@ -24,7 +24,8 @@ from horovod_tpu.parallel.ring_attention import (
     blockwise_attention_reference as jax_reference)
 from horovod_tpu_torch.common.exceptions import KernelError
 from horovod_tpu_torch.ops import flash_attention as tfa
-from horovod_tpu_torch.parallel import ring_attention as tra
+from horovod_tpu_torch.parallel.ring_attention import (
+    blockwise_attention_reference)
 
 TOL_OUT, TOL_GRAD = 1e-5, 2e-5
 
@@ -137,7 +138,7 @@ def test_untileable_shape_takes_the_reference():
     got = tfa.flash_attention(*_t(q, k, v), causal=True)
     want = jfa.flash_attention(*_j(q, k, v), causal=True)
     _close(want, got, TOL_OUT)
-    _close(tra.blockwise_attention_reference(*_t(q, k, v)), got, 0.0)
+    _close(blockwise_attention_reference(*_t(q, k, v)), got, 0.0)
     assert _counts() == before
 
 
@@ -152,7 +153,7 @@ def test_blocks_that_do_not_divide_take_the_reference():
 def test_reference_matches_jax(causal):
     q, k, v = _mk(*[(2, 2, 48, 16)] * 3, seed=6)
     _close(jax_reference(*_j(q, k, v), causal=causal),
-           tra.blockwise_attention_reference(*_t(q, k, v), causal=causal),
+           blockwise_attention_reference(*_t(q, k, v), causal=causal),
            TOL_OUT)
 
 

@@ -17,14 +17,13 @@ gradients differ by f32 summation order (~1e-6 relative), which moves
 m/√v, and so the update, far less than that.
 """
 
-import multiprocessing as mp
-
 import jax
 import jax.numpy as jnp
 import numpy as np
 import optax
 
 import torch_lm_worker
+from torch_world_worker import spawn_world
 from horovod_tpu.models import transformer as jtfm
 from horovod_tpu.parallel import MeshSpec, build_mesh
 from horovod_tpu_torch.models import convert
@@ -58,21 +57,11 @@ def test_two_process_lm_training_matches_jax(tmp_path):
     tokens = np.random.default_rng(5).integers(0, SMALL["vocab"], (4, 64))
     state0 = convert.transformer_from_jax(params)
 
-    ctx = mp.get_context("spawn")
     store = str(tmp_path / "store")
     outs = [str(tmp_path / f"rank{r}.npz") for r in range(k)]
-    procs = [ctx.Process(target=torch_lm_worker.run,
-                         args=(r, k, store, SMALL, state0, tokens, STEPS,
-                               outs[r]))
-             for r in range(k)]
-    for p in procs:
-        p.start()
-    for p in procs:
-        p.join(timeout=240)
-    for p in procs:
-        if p.is_alive():
-            p.kill()
-    assert [p.exitcode for p in procs] == [0] * k
+    spawn_world(torch_lm_worker.run,
+                [(r, k, store, SMALL, state0, tokens, STEPS, outs[r])
+                 for r in range(k)], tmp_path, deadline=240)
     res = [dict(np.load(o)) for o in outs]
 
     pj, losses_j = _jax_train(params, tokens, k)

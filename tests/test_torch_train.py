@@ -21,7 +21,6 @@ a device on a host without CUDA raises.
 """
 
 import ast
-import multiprocessing as mp
 import os
 import pathlib
 import subprocess
@@ -35,6 +34,7 @@ from jax import lax
 from jax.sharding import Mesh, PartitionSpec as P
 
 import torch_train_worker
+from torch_world_worker import spawn_world
 from horovod_tpu.models import resnet as jresnet
 from horovod_tpu.ops.compression import Compression
 from horovod_tpu.optim.optimizer import reduce_gradients_in_jit
@@ -70,20 +70,11 @@ def _jax_train(params, stats, x, y, k):
 
 
 def _spawn_workers(tmp_path, state, x, y, k):
-    ctx = mp.get_context("spawn")
     store = str(tmp_path / "store")
     outs = [str(tmp_path / f"rank{r}.npz") for r in range(k)]
-    procs = [ctx.Process(target=torch_train_worker.run,
-                         args=(r, k, store, state, x, y, STEPS, outs[r]))
-             for r in range(k)]
-    for p in procs:
-        p.start()
-    for p in procs:
-        p.join(timeout=240)
-    for p in procs:
-        if p.is_alive():
-            p.kill()
-    assert [p.exitcode for p in procs] == [0] * k
+    spawn_world(torch_train_worker.run,
+                [(r, k, store, state, x, y, STEPS, outs[r])
+                 for r in range(k)], tmp_path, deadline=240)
     return [dict(np.load(o)) for o in outs]
 
 
@@ -179,7 +170,13 @@ def test_package_imports_no_jax_at_runtime():
             "horovod_tpu_torch.common.resilience, "
             "horovod_tpu_torch.ckpt, horovod_tpu_torch.checkpoint, "
             "horovod_tpu_torch.elastic, horovod_tpu_torch.elastic.driver, "
-            "horovod_tpu_torch.elastic.resnet_check;"
+            "horovod_tpu_torch.elastic.resnet_check, "
+            "horovod_tpu_torch.parallel, horovod_tpu_torch.parallel.mesh, "
+            "horovod_tpu_torch.parallel.comm, "
+            "horovod_tpu_torch.parallel.ring_attention, "
+            "horovod_tpu_torch.parallel.ulysses, "
+            "horovod_tpu_torch.models.transformer, "
+            "horovod_tpu_torch.transformer_lm;"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'horovod_tpu', 'optax')];"
             "print(bad); sys.exit(1 if bad else 0)")

@@ -25,6 +25,7 @@ from horovod_tpu_torch.common.exceptions import HorovodError
 from horovod_tpu_torch.models import convert
 from horovod_tpu_torch.models import transformer as ttfm
 from horovod_tpu_torch.ops import flash_attention as tfa
+from horovod_tpu_torch.parallel import mesh as tmesh
 
 TOL = 2e-4
 SMALL = dict(vocab=64, d_model=32, n_heads=4, d_ff=64, n_layers=2,
@@ -114,6 +115,15 @@ def test_flash_and_local_agree():
 ])
 def test_unported_options_raise(kw, item):
     cfg = ttfm.TransformerConfig(**{**SMALL, **kw})
+    if cfg.attn in ("ring", "ulysses"):
+        # Ported (sequence parallelism): the model is admitted, and what
+        # stays refused is a mesh with the tp axis of A11 part 2.
+        ttfm.TransformerLM(cfg)
+        spec = tmesh.MeshSpec(tp=2)
+        mesh = tmesh.Mesh(spec, np.arange(2).reshape(spec.sizes()))
+        with pytest.raises(HorovodError, match=item):
+            ttfm.validate_cfg_for_mesh(cfg, mesh)
+        return
     with pytest.raises(HorovodError, match=item):
         ttfm.TransformerLM(cfg)
 

@@ -281,22 +281,12 @@ def run_sets(rank, size, store, inputs, out_path):
 
 def spawn(target, tmp_path, inputs, k=4, timeout=180):
     """Run `target` (one of the run_* above) on k spawned ranks; each
-    rank's results, in rank order. Workers join with a bound and are
-    killed past it."""
-    import multiprocessing as mp
+    rank's results, in rank order. The ranks share one deadline of
+    `timeout` seconds (tests/torch_world_worker.py)."""
+    from torch_world_worker import spawn_world
 
-    ctx = mp.get_context("spawn")
     store = str(tmp_path / "store")
     outs = [str(tmp_path / f"rank{r}.npz") for r in range(k)]
-    procs = [ctx.Process(target=target,
-                         args=(r, k, store, inputs, outs[r]))
-             for r in range(k)]
-    for p in procs:
-        p.start()
-    for p in procs:
-        p.join(timeout=timeout)
-    for p in procs:
-        if p.is_alive():
-            p.kill()
-    assert [p.exitcode for p in procs] == [0] * k
+    spawn_world(target, [(r, k, store, inputs, outs[r]) for r in range(k)],
+                tmp_path, deadline=timeout)
     return [dict(np.load(o)) for o in outs]

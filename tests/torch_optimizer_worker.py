@@ -181,3 +181,39 @@ def run_c5(rank, size, store, inputs, out_path):
     finally:
         hvd.shutdown()
     np.savez(out_path, **out)
+
+
+def run_c6(rank, size, store, inputs, out_path):
+    """Fault C6: the ROADMAP input (four f32 gradients of 100,000 values
+    and one of 524,288, the same on every rank) through the hook path
+    under Compression.bf16_large at the default fusion threshold; the
+    reduced gradients and the bucket plan."""
+    _env(rank, size, {})
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.ops.compression import wire_dtype
+
+    torch.set_num_threads(1)
+    hvd.init(device="cpu", init_method=f"file://{store}")
+    out = {}
+    try:
+        gs = [torch.from_numpy(inputs[f"g{i}"]) for i in range(5)]
+        ps = [torch.nn.Parameter(torch.zeros_like(g)) for g in gs]
+        comp = hvd.Compression.bf16_large
+        opt = hvd.DistributedOptimizer(
+            torch.optim.SGD(ps, lr=0.0), compression=comp,
+            named_parameters=[(f"g{i}", p) for i, p in enumerate(ps)])
+        _backward(ps, gs)
+        opt.synchronize()
+        for i, p in enumerate(ps):
+            out[f"reduced{i}"] = p.grad.numpy()
+            out[f"wire{i}"] = np.asarray(str(wire_dtype(comp, p.dtype,
+                                                        p.numel())))
+        for b, bucket in enumerate(opt.plan):
+            out[f"bucket{b}/dtype"] = np.asarray(bucket.dtype)
+            out[f"bucket{b}/members"] = np.asarray(
+                sorted({it.index for it in bucket.items}))
+    finally:
+        hvd.shutdown()
+    np.savez(out_path, **out)
