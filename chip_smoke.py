@@ -168,6 +168,35 @@ Phases, each fatal on failure:
      5's, kernels 4–6 12·(r + 1) (ring) or 12 (Ulysses) times a step on
      rank r, tokens/s over the global batch and each rank's peak
      memory; with one card it says so.
+ 12. the benchmark's other models and the API surface — hvd.init() on
+     NCCL: (a) VGG-16 (224²) and Inception V3 (299²), bf16, batch 32,
+     1000 classes, through synthetic_benchmark.build/train_step and the
+     bucketed DistributedOptimizer (SGD momentum 0.9; VGG-16 at lr
+     VGG_LR, since the benchmark's 0.01 diverges on it, as on the JAX
+     model) from the seed-0 weights, 2 warm-up and 5 timed steps:
+     every loss finite, every Inception BN stat
+     moved, none of kernels 1–6 launched (no TPU kernel lies on these
+     models' path); img/s, ms/step, buckets a step, peak memory,
+     perfscope's dispatch share and, by profile_step.profile_route over
+     device_profile's kernel events, the device busy share, kernels a
+     step and ms by family; one VGG-19 step, its loss finite; (b) one
+     f32 forward and backward at batch 2 of the same weights on the
+     same batch on the card and on the host, tf32 off: VGG-16 at 64²,
+     Inception V3 at 75² in eval mode, and Inception's train-mode loss
+     at 299², the loss and the largest |gradient| within TOL_HOST; (c)
+     ops/pooling.max_pool's forward and gradient on the card equal the
+     host's bit for bit on all-zero and post-ReLU inputs, 3x3/2 and
+     2x2/2, f32 and bf16; (d) every in-place and grouped async form of
+     ops/collectives.py on CUDA tensors in bf16 and f32 writes into the
+     caller's tensor exactly what the out-of-place form returns, and
+     nccl_built() and cuda_built() are True; (e) SyncBatchNorm in a
+     world of 1 against the JAX-formula BN, and with two or more cards a
+     world of 2 (batches 3 and 5) through `runner.run` against one
+     SyncBatchNorm over the 8 on one card (TOL_SBN, TOL_SBN_STATS); (f)
+     `runner.launch -np 1` of the synthetic benchmark with --model
+     inception3 prints its img/s, and with two or more cards
+     `--scaling-report min(4, count) --model vgg16` its JSON line
+     (recorded); with one card it says so.
 Then the `kernels` JSON line, the card's name and power limit, and last
 {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
 
@@ -2567,6 +2596,501 @@ def sp_world(lm_out: dict) -> dict:
     return out
 
 
+# ------------------------- phase 12: the other models and the API surface
+
+# Phase 12's bars. (b) The same f32 model on the card and on the host:
+# cuDNN's and oneDNN's convolutions and the two GEMM libraries sum in
+# different orders (tf32 is off, so every product is f32), ~1e-6 of a
+# value per layer through 16 (VGG) or ~95 (Inception) layers; 1e-3 of
+# the loss and of the largest gradient leaves room for that and catches
+# any wrong layer, whose error is of the order of the value.
+TOL_HOST = 1e-3
+# (e) Count-weighted BN on the card against the JAX formula or one BN
+# over the whole batch: f32 sums of 2·8·8 to 8·8·8 values a channel in
+# other orders (and the all-reduce's) differ by ~1e-7; the outputs and
+# gradients pass through rsqrt(var + eps), a few ulp.
+TOL_SBN = 1e-5              # outputs and gradients, of the largest
+TOL_SBN_STATS = 1e-6        # running mean and var, of the largest
+SBN_C = 64
+SBN_BATCHES = (3, 5)        # per-rank images in (e)'s world of 2
+# (a) VGG-16 under the benchmark's SGD (lr 0.01, momentum 0.9) on one
+# repeated batch diverges within a few steps, as the JAX model does
+# (tests/test_torch_models.py::test_vgg16_sgd_steps_track_jax_and_
+# diverge_alike): the finite-loss bar trains it at this lr (momentum
+# 0.9); the step's kernels and their times do not depend on the lr.
+VGG_LR = 1e-4
+
+
+def _bn_buffers(model):
+    return {n: b.detach().clone() for n, b in model.named_buffers()}
+
+
+def other_model_run(name, image, batch=32, warmup=2, timed=5, lr=None):
+    """Phase 12 (a) for one model: `warmup` + `timed` steps of
+    synthetic_benchmark.train_step (bf16, 1000 classes, the bucketed
+    hook path) from the seed-0 weights, perfscope over the timed steps,
+    then profile_step.profile_route's device busy share over 3 traced
+    steps. The optimizer is the benchmark's, or SGD at `lr` (momentum
+    0.9). No kernel of ours lies on this path: the counters must stay
+    at 0."""
+    import torch
+    import torch.distributed as dist
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import profile_step
+    from horovod_tpu_torch import synthetic_benchmark as sb
+    dev, group = hvd.device(), dist.group.WORLD
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = sb.build(name, torch.bfloat16, dev, image_size=image)
+    opt = sb.make_optimizer(model) if lr is None else \
+        hvd.DistributedOptimizer(
+            torch.optim.SGD(model.parameters(), lr=lr, momentum=0.9),
+            named_parameters=model.named_parameters())
+    data = sb.make_batch(batch, image, torch.bfloat16, dev, seed=hvd.rank())
+    before = _bn_buffers(model)
+    reset_counters()
+    losses = [sb.train_step(model, opt, data, group) for _ in range(warmup)]
+    ps = hvd.perfscope()
+    torch.cuda.synchronize()
+    ps.reset()
+    ps.step_entry()
+    t0 = time.perf_counter()
+    losses += [sb.train_step(model, opt, data, group) for _ in range(timed)]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    summ = ps.summary()
+    counts = read_counters()
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    losses = [float(v) for v in losses]
+    prof = profile_step.profile_route(
+        lambda: sb.train_step(model, opt, data, group), 3)
+    after = _bn_buffers(model)
+    moved = [n for n in before if not torch.equal(before[n], after[n])]
+    out = dict(model=name, image=image, batch=batch, lr=lr, losses=losses,
+               img_per_s=batch * timed / dt, step_ms=dt / timed * 1e3,
+               buckets=len(opt.plan), peak_mem_gb=peak_gb,
+               launches=counts, bn_buffers=len(before),
+               bn_buffers_moved=len(moved),
+               dispatch_share=summ.get("phase_fractions", {}).get(
+                   "dispatch"),
+               phase_fractions=summ.get("phase_fractions"),
+               busy_share=prof["busy_share"],
+               device_busy_ms=prof["device_busy_ms_per_step"],
+               kernels_per_step=prof["kernels_per_step"],
+               family_ms=prof["family_ms_per_step"],
+               profiled_wall_ms=prof["wall_ms_per_step"])
+    for h in opt._hooks:  # they stack on the parameters of a next run
+        h.remove()
+    print(f"(a) {name} {image}² bf16 batch {batch}: {out['img_per_s']:.1f} "
+          f"img/s, {out['step_ms']:.2f} ms/step, {out['buckets']} buckets "
+          f"a step, peak memory {peak_gb:.2f} GB, losses "
+          f"{[round(v, 5) for v in losses]}")
+    print(f"(a) {name}: device busy {prof['device_busy_ms_per_step']:.2f} "
+          f"ms a step ({prof['busy_share']:.3f} of "
+          f"{prof['wall_ms_per_step']:.2f} ms traced), "
+          f"{prof['kernels_per_step']:.0f} kernels a step, perfscope "
+          f"dispatch share {out['dispatch_share']}; ms a step by family "
+          + ", ".join(f"{k} {v:.2f}"
+                      for k, v in prof["family_ms_per_step"].items()))
+    need(all(math.isfinite(v) for v in losses),
+         f"phase 12 (a) {name}: non-finite loss {losses}")
+    need(sum(counts.values()) == 0,
+         f"phase 12 (a) {name}: a kernel of ours ran: {counts}")
+    if name == "inception3":
+        need(len(moved) == len(before) == 188,
+             f"phase 12 (a): {len(moved)} of {len(before)} BN stats moved")
+    else:
+        need(not before, f"phase 12 (a) {name} holds buffers")
+    return out
+
+
+def _seeded_bn_stats(model, seed):
+    """Running stats from a seed (means N(0, 0.1²), vars U(0.5, 1.5)),
+    so eval mode normalises with values unlike the init's."""
+    import torch
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for n, b in model.named_buffers():
+            if n.endswith(".mean"):
+                b.copy_(torch.randn(b.shape, generator=g) * 0.1)
+            else:
+                b.copy_(torch.rand(b.shape, generator=g) + 0.5)
+
+
+def host_check(dev):
+    """Phase 12 (b): one f32 forward and backward at batch 2 of the same
+    model, from the same weights on the same batch, on the card and on
+    the host (which tests/test_torch_models.py holds against the JAX
+    models), tf32 off: VGG-16 at 64², 10 classes; Inception V3 at 75²,
+    10 classes, in eval mode with seeded running stats (in train mode at
+    75² a batch of 2 leaves count-2 BNs, where even the JAX model's two
+    lowerings differ by 27%); and Inception's train-mode loss at 299²
+    (the forward, well conditioned there). The loss and the largest
+    |gradient| within TOL_HOST, relative."""
+    import torch
+    from horovod_tpu_torch.models import inception, vgg
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    try:
+        cases = [("vgg16", 64, True), ("inception3", 75, False),
+                 ("inception3", 299, True)]
+        for name, image, train in cases:
+            if name == "vgg16":
+                host = vgg.VGG(16, num_classes=10, image_size=image)
+            else:
+                host = inception.InceptionV3(num_classes=10)
+                if not train:
+                    _seeded_bn_stats(host, 3)
+            card = copy.deepcopy(host).to(dev)
+            g = torch.Generator().manual_seed(11)
+            x = torch.randn(2, image, image, 3, generator=g)
+            y = torch.randint(0, 10, (2,), generator=g)
+            res = {}
+            grads = image != 299
+            for where, m in (("host", host), ("card", card)):
+                batch = (x.to(next(m.parameters()).device),
+                         y.to(next(m.parameters()).device))
+                with torch.set_grad_enabled(grads):
+                    loss = vgg.loss_fn(m, batch) if name == "vgg16" else \
+                        inception.loss_fn(m, batch, train=train)[0]
+                res[where] = {"loss": float(loss.detach())}
+                if grads:
+                    loss.backward()
+                    res[where]["max_grad"] = max(
+                        float(p.grad.abs().max()) for p in m.parameters())
+            tag = f"{name} {image}² {'train' if train else 'eval'}"
+            rel = {k: abs(res["card"][k] - res["host"][k]) /
+                   abs(res["host"][k]) for k in res["host"]}
+            out[tag] = dict(res, rel=rel)
+            print(f"(b) {tag}: card {res['card']}, host {res['host']}, "
+                  f"relative differences {rel} (tolerance {TOL_HOST})")
+            need(all(math.isfinite(v) for r in res.values()
+                     for v in r.values()), f"phase 12 (b) {tag}: "
+                 "non-finite value")
+            need(all(v <= TOL_HOST for v in rel.values()),
+                 f"phase 12 (b) {tag}: the card and the host disagree")
+            del card
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved
+    torch.cuda.empty_cache()
+    return out
+
+
+def pool_check(dev):
+    """Phase 12 (c): ops/pooling.max_pool's forward and backward on the
+    card equal the host's bit for bit, in f32 and bf16, on Inception's
+    stem pool (3x3/2 VALID, 2 x 147 x 147 x 64: overlapping windows)
+    and VGG's (2x2/2 VALID, 2 x 224 x 224 x 64), for an all-zero input
+    (every window a tie) and post-ReLU data (about half zeros). The
+    cotangents are small integers, whose sums are exact in either
+    order, so every bit of the gradient is where the first-max rule put
+    it."""
+    import torch
+    from horovod_tpu_torch.ops.pooling import max_pool
+    g = torch.Generator().manual_seed(5)
+    cases = 0
+    for shape, win in (((2, 147, 147, 64), 3), ((2, 224, 224, 64), 2)):
+        for kind in ("zeros", "relu"):
+            base = torch.zeros(shape) if kind == "zeros" else \
+                torch.relu(torch.round(torch.randn(shape, generator=g) * 2)
+                           / 2)
+            for dt in (torch.float32, torch.bfloat16):
+                res = []
+                for d in ("cpu", dev):
+                    x = base.to(d, dt).clone().requires_grad_()
+                    yv = max_pool(x, (win, win), (2, 2), "VALID")
+                    ct = torch.randint(
+                        1, 8, yv.shape,
+                        generator=torch.Generator().manual_seed(6)).to(dt)
+                    (yv * ct.to(d)).sum().backward()
+                    res.append((yv.detach().cpu(), x.grad.cpu()))
+                what = f"{win}x{win}/2 {tuple(shape)} {kind} {dt}"
+                need(torch.equal(res[0][0], res[1][0]),
+                     f"phase 12 (c) {what}: forward differs")
+                need(torch.equal(res[0][1], res[1][1]),
+                     f"phase 12 (c) {what}: gradient differs")
+                cases += 1
+    print(f"(c) max_pool: {cases} cases (3x3/2 and 2x2/2, all-zero and "
+          f"post-ReLU, f32 and bf16), forward and gradient on the card "
+          f"equal to the host's bit for bit")
+    return cases
+
+
+def inplace_check(dev):
+    """Phase 12 (d): every in-place form on CUDA tensors over NCCL in a
+    world of 1, bf16 and f32, leaves the same tensor (data_ptr
+    unchanged) holding exactly what the out-of-place form returns;
+    grouped_allgather_async and grouped_reducescatter_async equal their
+    synchronous forms; the build queries of the card's build."""
+    import torch
+    import horovod_tpu_torch as hvd
+    g = torch.Generator(device=dev).manual_seed(9)
+    cases = 0
+
+    def same(what, r, t, ptr, want):
+        nonlocal cases
+        need(r is t and t.data_ptr() == ptr and t.is_cuda,
+             f"phase 12 (d) {what}: not written into the caller's tensor")
+        need(torch.equal(t, want), f"phase 12 (d) {what}: differs from "
+             "the out-of-place form")
+        cases += 1
+
+    for dt in (torch.bfloat16, torch.float32):
+        x = torch.randn(4099, 3, generator=g, device=dev).to(dt)
+        x2 = torch.randn(7, 5, generator=g, device=dev).to(dt)
+        for op in (hvd.Average, hvd.Sum, hvd.Max, hvd.Product, hvd.Adasum):
+            t = x.clone()
+            ptr = t.data_ptr()
+            same(f"allreduce_ {op.name} {dt}", hvd.allreduce_(t, op=op), t,
+                 ptr, hvd.allreduce(x, op=op))
+            t = x.clone()
+            ptr = t.data_ptr()
+            h = hvd.allreduce_async_(t, op=op, name=f"p12.{op.name}")
+            same(f"allreduce_async_ {op.name} {dt}", hvd.synchronize(h), t,
+                 ptr, hvd.allreduce(x, op=op))
+        group = [x.clone(), x2.clone()]
+        ptrs = [t.data_ptr() for t in group]
+        got = hvd.grouped_allreduce_(group, op=hvd.Sum)
+        for r, t, p, w in zip(got, group, ptrs,
+                              hvd.grouped_allreduce([x, x2], op=hvd.Sum)):
+            same(f"grouped_allreduce_ {dt}", r, t, p, w)
+        group = [x.clone(), x2.clone()]
+        ptrs = [t.data_ptr() for t in group]
+        got = hvd.synchronize(hvd.grouped_allreduce_async_(group))
+        for r, t, p, w in zip(got, group, ptrs,
+                              hvd.grouped_allreduce([x, x2])):
+            same(f"grouped_allreduce_async_ {dt}", r, t, p, w)
+        t = x.clone()
+        ptr = t.data_ptr()
+        same(f"broadcast_ {dt}", hvd.broadcast_(t, 0), t, ptr,
+             hvd.broadcast(x, 0))
+        t = x.clone()
+        ptr = t.data_ptr()
+        same(f"broadcast_async_ {dt}",
+             hvd.synchronize(hvd.broadcast_async_(t, 0)), t, ptr,
+             hvd.broadcast(x, 0))
+        for what, a, b in (
+                ("grouped_allgather_async",
+                 hvd.synchronize(hvd.grouped_allgather_async([x, x2])),
+                 hvd.grouped_allgather([x, x2])),
+                ("grouped_reducescatter_async",
+                 hvd.synchronize(hvd.grouped_reducescatter_async([x, x2])),
+                 hvd.grouped_reducescatter([x, x2]))):
+            need(all(u.is_cuda and torch.equal(u, v) for u, v in zip(a, b)),
+                 f"phase 12 (d) {what} {dt}: differs from the synchronous "
+                 "form")
+            cases += 1
+    queries = {q: getattr(hvd, q)() for q in (
+        "nccl_built", "cuda_built", "gloo_built", "mpi_built", "rocm_built",
+        "tpu_built", "gloo_enabled", "mpi_enabled")}
+    queries["local_slot_ranks"] = hvd.local_slot_ranks()
+    print(f"(d) {cases} in-place and grouped async cases on the card equal "
+          f"their out-of-place forms; queries {queries}")
+    need(queries["nccl_built"] and queries["cuda_built"],
+         "phase 12 (d): nccl_built() or cuda_built() is False on the card")
+    need(not queries["gloo_enabled"] and queries["local_slot_ranks"] == [0],
+         f"phase 12 (d): queries {queries}")
+    return dict(cases=cases, queries=queries)
+
+
+def _sbn_close(what, got, want, tol):
+    err = float((got.double() - want.double()).abs().max())
+    scale = float(want.double().abs().max())
+    need(err <= tol * scale, f"phase 12 (e) {what}: {err:.3g} against "
+         f"{tol} of {scale:.3g}")
+    return err / scale
+
+
+def _sbn_inputs(dev):
+    """The batch of 8 images (8 x 8 x 64, channels with offsets so that
+    E[x]² is not small against var), its cotangent, scale and bias."""
+    import torch
+    g = torch.Generator().manual_seed(13)
+    x = torch.randn(sum(SBN_BATCHES), 8, 8, SBN_C, generator=g) * 2 + \
+        torch.arange(SBN_C) / 8
+    ct = torch.randn(x.shape, generator=g)
+    scale = torch.rand(SBN_C, generator=g) + 0.5
+    bias = torch.randn(SBN_C, generator=g) * 0.5
+    return [t.to(dev) for t in (x, ct, scale, bias)]
+
+
+def _sbn_forward(x, ct, scale, bias):
+    """One SyncBatchNorm over its process set, train mode: (out, dx,
+    running mean, running var)."""
+    import torch
+    import horovod_tpu_torch as hvd
+    layer = hvd.SyncBatchNorm(SBN_C, device=x.device)
+    with torch.no_grad():
+        layer.scale.copy_(scale)
+        layer.bias.copy_(bias)
+    x = x.detach().clone().requires_grad_()
+    y = layer(x)
+    (y * ct).sum().backward()
+    return y.detach(), x.grad, layer.running_mean, layer.running_var
+
+
+def sbn_rank() -> dict:
+    """One rank of phase 12 (e)'s world of 2 (under runner.run): its
+    slice (3 or 5 images) of the batch through SyncBatchNorm."""
+    import torch
+    import horovod_tpu_torch as hvd
+    hvd.init()
+    try:
+        r, dev = hvd.rank(), hvd.device()
+        x, ct, scale, bias = _sbn_inputs(dev)
+        lo = sum(SBN_BATCHES[:r])
+        sl = slice(lo, lo + SBN_BATCHES[r])
+        y, dx, m, v = _sbn_forward(x[sl], ct[sl], scale, bias)
+        return {"y": y.cpu(), "dx": dx.cpu(), "mean": m.cpu(),
+                "var": v.cpu(), "device": torch.cuda.get_device_name(dev)}
+    finally:
+        hvd.shutdown()
+
+
+def sbn_check(dev):
+    """Phase 12 (e): SyncBatchNorm on the card. In this world of 1 it
+    equals the JAX-formula BN (ops/sync_batch_norm.batch_norm, no group)
+    of the same batch: output, input gradient and running stats. With
+    two or more cards, a world of 2 through runner.run with per-rank
+    batches of 3 and 5 gives each rank's slice of the output and input
+    gradient, and the running stats, of one SyncBatchNorm over the
+    concatenated 8 on one card."""
+    import torch
+    from horovod_tpu_torch.ops import sync_batch_norm as sbn
+    x, ct, scale, bias = _sbn_inputs(dev)
+    y, dx, m, v = _sbn_forward(x, ct, scale, bias)
+    x2 = x.clone().requires_grad_()
+    want, (wm, wv) = sbn.batch_norm(x2, scale, bias,
+                                    torch.zeros(SBN_C, device=dev),
+                                    torch.ones(SBN_C, device=dev), True)
+    (want * ct).sum().backward()
+    out = {"world1": {
+        "out": _sbn_close("world of 1: output", y, want.detach(), TOL_SBN),
+        "dx": _sbn_close("world of 1: dx", dx, x2.grad, TOL_SBN),
+        "mean": _sbn_close("world of 1: mean", m, wm, TOL_SBN_STATS),
+        "var": _sbn_close("world of 1: var", v, wv, TOL_SBN_STATS)}}
+    print(f"(e) SyncBatchNorm, world of 1, against the JAX-formula BN: "
+          f"relative errors {out['world1']}")
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        print("phase 12 (e): one card; the world of 2 (batches 3 and 5) "
+              "needs two or more")
+        out["world2"] = None
+        return out
+    from horovod_tpu_torch import runner
+    # By its module's name, so that the workers can import it when this
+    # file runs as __main__ (pickle refers to a function by its module).
+    from chip_smoke import sbn_rank as rank_fn
+    res = runner.run(rank_fn, np=2, timeout=180)
+    errs = {}
+    for r, rr in enumerate(res):
+        lo = sum(SBN_BATCHES[:r])
+        sl = slice(lo, lo + SBN_BATCHES[r])
+        errs[r] = {
+            "out": _sbn_close(f"rank {r} output", rr["y"], y[sl].cpu(),
+                              TOL_SBN),
+            "dx": _sbn_close(f"rank {r} dx", rr["dx"], dx[sl].cpu(),
+                             TOL_SBN),
+            "mean": _sbn_close(f"rank {r} mean", rr["mean"], m.cpu(),
+                               TOL_SBN_STATS),
+            "var": _sbn_close(f"rank {r} var", rr["var"], v.cpu(),
+                              TOL_SBN_STATS)}
+    out["world2"] = errs
+    print(f"(e) SyncBatchNorm, world of 2 (batches {SBN_BATCHES}) on "
+          f"{res[0]['device']}, against one over all 8: relative errors "
+          f"{errs}")
+    return out
+
+
+def launched_models():
+    """Phase 12 (f): the launcher starts the synthetic benchmark with
+    --model inception3 on one rank, which prints its img/s; with two or
+    more cards `--scaling-report min(4, count) --model vgg16` prints its
+    JSON line (recorded, not gated)."""
+    import torch
+    py = sys.executable
+    out = {}
+    rc, text = run_bounded(
+        [py, "-m", "horovod_tpu_torch.runner.launch", "-np", "1", py, "-m",
+         "horovod_tpu_torch.synthetic_benchmark", "--model", "inception3",
+         "--num-iters", "2"], 600)
+    print("\n".join("(f) launch: " + ln for ln in text.splitlines()
+                    if "<stdout>:" in ln))
+    need(rc == 0, f"phase 12 (f): the launched benchmark exited {rc}")
+    rate = [float(ln.rsplit(":", 1)[1]) for ln in text.splitlines()
+            if "Img/sec per rank:" in ln]
+    need(len(rate) == 1 and rate[0] > 0 and
+         any("Model: inception3" in ln and "299²" in ln
+             for ln in text.splitlines()),
+         "phase 12 (f): no Img/sec per rank figure for inception3 at 299²")
+    out["inception3_img_per_s"] = rate[0]
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        print("phase 12 (f): one card; the vgg16 scaling report needs two "
+              "or more")
+        out["scaling_report"] = None
+        return out
+    n = min(4, cards)
+    rc, text = run_bounded(
+        [py, "-m", "horovod_tpu_torch.synthetic_benchmark", "--model",
+         "vgg16", "--num-iters", "2", "--scaling-report", str(n)], 600)
+    last = text.strip().splitlines()[-1] if text.strip() else ""
+    print(f"(f) --scaling-report {n} --model vgg16 exited {rc}: {last}")
+    out["scaling_report"] = dict(rc=rc, line=last)
+    return out
+
+
+def other_models_path():
+    """Phase 12: the benchmark's other models and the API surface, (a)
+    to (f) above, in a world of 1 on NCCL."""
+    import torch
+    import horovod_tpu_torch as hvd
+    t0 = time.perf_counter()
+    hvd.init()
+    try:
+        dev = hvd.device()
+        need(dev.type == "cuda", "phase 12 is not on the card")
+        out = {"a": {"vgg16": other_model_run("vgg16", 224, lr=VGG_LR),
+                     "inception3": other_model_run("inception3", 299)}}
+        torch.cuda.empty_cache()
+        out["vgg19_loss"] = vgg19_step()
+        out["b"] = host_check(dev)
+        out["c"] = pool_check(dev)
+        out["d"] = inplace_check(dev)
+        out["e"] = sbn_check(dev)
+    finally:
+        hvd.shutdown()
+    torch.cuda.empty_cache()
+    out["f"] = launched_models()
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def vgg19_step():
+    """Phase 12 (a): one VGG-19 step (224², bf16, batch 32); its loss
+    finite."""
+    import torch
+    import torch.distributed as dist
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import synthetic_benchmark as sb
+    dev = hvd.device()
+    model = sb.build("vgg19", torch.bfloat16, dev)
+    opt = sb.make_optimizer(model)
+    data = sb.make_batch(32, 224, torch.bfloat16, dev, seed=hvd.rank())
+    loss = float(sb.train_step(model, opt, data, dist.group.WORLD))
+    for h in opt._hooks:
+        h.remove()
+    del model, opt
+    torch.cuda.empty_cache()
+    print(f"(a) vgg19 224² bf16 batch 32: one step, loss {loss:.5f}")
+    need(math.isfinite(loss), f"phase 12 (a) vgg19: loss {loss}")
+    return loss
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2638,6 +3162,8 @@ def main() -> int:
     lap("10 elastic and checkpointing")
     sp_run = sequence_parallel_path(lm)
     lap("11 sequence parallelism")
+    others = other_models_path()
+    lap("12 other models and the API surface")
     print(f"total: {time.perf_counter() - t0:.1f} s")
 
     src = "horovod_tpu_torch/csrc/"
@@ -2684,6 +3210,7 @@ def main() -> int:
                    "observed_path": observed,
                    "elastic_path": elastic_run,
                    "sequence_parallel_path": sp_run,
+                   "other_models_path": others,
                    "phase_s": phase_s,
                    "nvidia_smi": smi}, f, indent=1)
     print(json.dumps(line))

@@ -27,12 +27,20 @@ and `horovod_tpu_torch.ckpt` the async two-phase checkpointer with
 exactly-once resume. Under HOROVOD_MESH ("dp=2,sp=2") init lays the
 ranks on named axes (`hvd.mesh_spec()`, `hvd.hybrid_mesh()`,
 `hvd.axis_process_set`), over which the transformer LM runs ring or
-Ulysses attention (`horovod_tpu_torch.parallel`). The package imports
+Ulysses attention (`horovod_tpu_torch.parallel`). The in-place forms
+(`allreduce_`, `grouped_allreduce_`, `broadcast_` and their `_async_`
+forms) write into the caller's tensors; `grouped_allgather_async` and
+`grouped_reducescatter_async` give one handle for a group; the build
+queries (`nccl_built()`, `cuda_built()`, ...) answer from torch's own
+build; `hvd.SyncBatchNorm` is the count-weighted cross-rank BN of the
+JAX package (its conventions, not `torch.nn.SyncBatchNorm`'s). The
+synthetic benchmark trains ResNet-50/101/152, VGG-16/19 and Inception
+V3 (`horovod_tpu_torch.models`, with the MLP). The package imports
 neither JAX nor horovod_tpu.
 """
 
 from horovod_tpu_torch.common.types import (  # noqa: F401
-    Adasum, Average, Max, Min, Product, ReduceOp, Sum,
+    Adasum, Average, Max, Min, Product, ReduceOp, Status, StatusType, Sum,
 )
 from horovod_tpu_torch.common.exceptions import (  # noqa: F401
     CheckpointCorruptError, DuplicateNameError, HorovodError,
@@ -40,9 +48,11 @@ from horovod_tpu_torch.common.exceptions import (  # noqa: F401
     TensorShapeMismatchError,
 )
 from horovod_tpu_torch.core.topology import (  # noqa: F401
-    cross_rank, cross_size, device, hybrid_mesh, init, is_homogeneous,
-    is_initialized, local_rank, local_size, mesh_spec, rank, shutdown, size,
-    start_timeline, stop_timeline,
+    ccl_built, cross_rank, cross_size, cuda_built, ddl_built, device,
+    gloo_built, gloo_enabled, hybrid_mesh, init, is_homogeneous,
+    is_initialized, local_rank, local_size, local_slot_ranks, mesh_spec,
+    mpi_built, mpi_enabled, mpi_threads_supported, nccl_built, rank,
+    rocm_built, shutdown, size, start_timeline, stop_timeline, tpu_built,
 )
 from horovod_tpu_torch.core.join import join, join_steps  # noqa: F401
 from horovod_tpu_torch.core.process_sets import (  # noqa: F401
@@ -50,20 +60,26 @@ from horovod_tpu_torch.core.process_sets import (  # noqa: F401
     global_process_set, remove_process_set,
 )
 from horovod_tpu_torch.ops.collectives import (  # noqa: F401
-    Handle, allgather, allgather_async, allreduce, allreduce_async,
-    alltoall, alltoall_async, barrier, broadcast, broadcast_async,
+    Handle, allgather, allgather_async, allreduce, allreduce_,
+    allreduce_async, allreduce_async_, alltoall, alltoall_async, barrier,
+    broadcast, broadcast_, broadcast_async, broadcast_async_,
     bucketed_allreduce, bucketed_allreduce_async, grouped_allgather,
-    grouped_allreduce, grouped_allreduce_async, grouped_reducescatter,
-    poll, reducescatter, reducescatter_async, sparse_allreduce,
+    grouped_allgather_async, grouped_allreduce, grouped_allreduce_,
+    grouped_allreduce_async, grouped_allreduce_async_,
+    grouped_reducescatter, grouped_reducescatter_async, poll,
+    reducescatter, reducescatter_async, sparse_allreduce,
     sparse_allreduce_async, synchronize,
 )
 from horovod_tpu_torch.ops.compression import Compression  # noqa: F401
+from horovod_tpu_torch.ops.sync_batch_norm import (  # noqa: F401
+    SyncBatchNorm, SyncBatchNormalization,
+)
 from horovod_tpu_torch.optim.optimizer import (  # noqa: F401
     DistributedOptimizer,
 )
 from horovod_tpu_torch.optim.functions import (  # noqa: F401
     allgather_object, broadcast_object, broadcast_optimizer_state,
-    broadcast_parameters,
+    broadcast_parameters, broadcast_variables,
 )
 
 from horovod_tpu_torch import elastic  # noqa: F401,E402

@@ -1,9 +1,10 @@
-"""Reduce operators and the collectives' dtypes (counterpart of
-horovod_tpu/common/types.py: ReduceOp, normalize_reduce_op and the
-supported-dtype check)."""
+"""Reduce operators, the collectives' dtypes and the operation status
+(counterpart of horovod_tpu/common/types.py: ReduceOp,
+normalize_reduce_op, the supported-dtype check, Status and StatusType)."""
 
 from __future__ import annotations
 
+import dataclasses
 import enum
 from typing import Any
 
@@ -27,6 +28,55 @@ Adasum = ReduceOp.ADASUM
 Min = ReduceOp.MIN
 Max = ReduceOp.MAX
 Product = ReduceOp.PRODUCT
+
+
+class StatusType(enum.IntEnum):
+    """Result classification (reference: horovod/common/common.h:175-182)."""
+
+    OK = 0
+    UNKNOWN_ERROR = 1
+    PRECONDITION_ERROR = 2
+    ABORTED = 3
+    INVALID_ARGUMENT = 4
+    IN_PROGRESS = 5
+
+
+@dataclasses.dataclass(frozen=True)
+class Status:
+    """Operation status (reference: horovod/common/common.h:184-228)."""
+
+    type: StatusType = StatusType.OK
+    reason: str = ""
+
+    @staticmethod
+    def OK() -> "Status":
+        return Status(StatusType.OK)
+
+    @staticmethod
+    def UnknownError(msg: str) -> "Status":
+        return Status(StatusType.UNKNOWN_ERROR, msg)
+
+    @staticmethod
+    def PreconditionError(msg: str) -> "Status":
+        return Status(StatusType.PRECONDITION_ERROR, msg)
+
+    @staticmethod
+    def Aborted(msg: str) -> "Status":
+        return Status(StatusType.ABORTED, msg)
+
+    @staticmethod
+    def InvalidArgument(msg: str) -> "Status":
+        return Status(StatusType.INVALID_ARGUMENT, msg)
+
+    @staticmethod
+    def InProgress() -> "Status":
+        return Status(StatusType.IN_PROGRESS)
+
+    def ok(self) -> bool:
+        return self.type == StatusType.OK
+
+    def in_progress(self) -> bool:
+        return self.type == StatusType.IN_PROGRESS
 
 
 def normalize_reduce_op(op: Any) -> ReduceOp:

@@ -470,6 +470,14 @@ def cross_size() -> int:
     return _require().cross_size
 
 
+def local_slot_ranks() -> List[int]:
+    """The ranks whose devices this process owns: `[rank()]`. The JAX
+    package answers with every rank of its process's local devices (one
+    process drives all of a host's TPU chips); here one process drives
+    one GPU, so the list holds this process's own rank."""
+    return [_require().rank]
+
+
 def is_homogeneous() -> bool:
     """Every host runs the same number of ranks (the local sizes that
     init gathered agree)."""
@@ -552,3 +560,56 @@ def rendezvous() -> str:
     """Where this world met: the init URL, or the `tcp://` address rank 0
     published through the launcher's rendezvous KV."""
     return _require().rendezvous
+
+
+# Build and query calls (the JAX package's topology.py:753-784 answers
+# them for its TPU build; the port answers from torch's own build).
+
+def nccl_built() -> bool:
+    return dist.is_nccl_available()
+
+
+def gloo_built() -> bool:
+    return dist.is_gloo_available()
+
+
+def mpi_built() -> bool:
+    return dist.is_mpi_available()
+
+
+def cuda_built() -> bool:
+    return torch.version.cuda is not None
+
+
+def rocm_built() -> bool:
+    return getattr(torch.version, "hip", None) is not None
+
+
+def tpu_built() -> bool:
+    return False
+
+
+def ccl_built() -> bool:
+    return False
+
+
+def ddl_built() -> bool:
+    return False
+
+
+def mpi_threads_supported() -> bool:
+    return False
+
+
+def _backend() -> Optional[str]:
+    return dist.get_backend() if _state.initialized else None
+
+
+def gloo_enabled() -> bool:
+    """The world joined over gloo (init(device="cpu"))."""
+    return _backend() == "gloo"
+
+
+def mpi_enabled() -> bool:
+    """The world joined over MPI (never: init joins NCCL or gloo)."""
+    return _backend() == "mpi"

@@ -7,6 +7,14 @@ models/resnet.ResNet: 3x3 and 7x7 conv weights turn from HWIO to OIHW,
 1x1 weights stay (Cin, Cout) matrices, BN scale/bias and the running
 mean/var keep their shapes.
 
+`vgg_from_jax(params)`, `inception_from_jax(params, stats)` and
+`mlp_from_jax(params)` do the same for horovod_tpu.models.vgg,
+.inception and .mlp: conv weights HWIO → OIHW (Inception's 1x1 convs
+stay (Cin, Cout) matrices, as the port keeps them), FC weights and
+biases as they are, Inception's BN parameters and running stats under
+the JAX keypaths (`a0/b5x5/1/bn/scale` → `a0.b5x5.1.bn.scale`, its
+stats → `a0.b5x5.1.bn.mean`, `.var`).
+
 `transformer_from_jax(params)` takes the tree that
 horovod_tpu.models.transformer.init returns (layer leaves stacked on a
 leading L axis) and gives the state dict of
@@ -88,3 +96,70 @@ def load_jax_transformer(model, params) -> None:
     state = {k: torch.from_numpy(np.array(v)) for k, v in
              transformer_from_jax(params).items()}
     model.load_state_dict(state, strict=True)
+
+
+def _load(model, state: Dict[str, np.ndarray]) -> None:
+    """Copy numpy arrays into `model` (cast to each tensor's dtype and
+    device), every name matched."""
+    import torch
+
+    model.load_state_dict({k: torch.from_numpy(np.array(v))
+                           for k, v in state.items()}, strict=True)
+
+
+def vgg_from_jax(params: Mapping[str, Any]) -> Dict[str, np.ndarray]:
+    """The port's VGG state dict for a JAX VGG parameter tree."""
+    out: Dict[str, np.ndarray] = {}
+    for top, p in params.items():
+        w = np.asarray(p["w"])
+        out[f"{top}.w"] = np.ascontiguousarray(w.transpose(3, 2, 0, 1)) \
+            if w.ndim == 4 else w
+        out[f"{top}.b"] = np.asarray(p["b"])
+    return out
+
+
+def load_jax_vgg(model, params) -> None:
+    """Copy a JAX VGG's weights into `model`."""
+    _load(model, vgg_from_jax(params))
+
+
+def inception_from_jax(params: Mapping[str, Any],
+                       stats: Mapping[str, Any]) -> Dict[str, np.ndarray]:
+    """The port's Inception V3 state dict (parameters and running stats)
+    for the JAX trees `inception.init` returns."""
+    out: Dict[str, np.ndarray] = {}
+
+    def conv_bn(prefix, p, st):
+        out[f"{prefix}.w"] = _conv(p["w"])
+        out[f"{prefix}.bn.scale"] = np.asarray(p["bn"]["scale"])
+        out[f"{prefix}.bn.bias"] = np.asarray(p["bn"]["bias"])
+        out[f"{prefix}.bn.mean"] = np.asarray(st["mean"])
+        out[f"{prefix}.bn.var"] = np.asarray(st["var"])
+
+    for top, p in params.items():
+        if top == "fc":
+            out["fc.w"] = np.asarray(p["w"])
+            out["fc.b"] = np.asarray(p["b"])
+        elif top == "stem":
+            for name, cp in p.items():
+                conv_bn(f"stem.{name}", cp, stats["stem"][name])
+        else:
+            for br, convs in p.items():
+                for i, cp in enumerate(convs):
+                    conv_bn(f"{top}.{br}.{i}", cp, stats[top][br][i])
+    return out
+
+
+def load_jax_inception(model, params, stats) -> None:
+    """Copy a JAX Inception V3's weights and running stats into
+    `model`."""
+    _load(model, inception_from_jax(params, stats))
+
+
+def mlp_from_jax(params) -> Dict[str, np.ndarray]:
+    """The port's MLP state dict for the JAX MLP's list of layers."""
+    out: Dict[str, np.ndarray] = {}
+    for i, layer in enumerate(params):
+        out[f"layers.{i}.w"] = np.asarray(layer["w"])
+        out[f"layers.{i}.b"] = np.asarray(layer["b"])
+    return out

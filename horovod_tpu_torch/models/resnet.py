@@ -31,11 +31,16 @@ from horovod_tpu_torch.ops import sync_batch_norm as sbn
 from horovod_tpu_torch.ops.conv_block import (conv1x1_bn_act_nhwc,
                                               conv_block_enabled)
 from horovod_tpu_torch.ops.conv_bn_backward import conv1x1_bn_nhwc
+from horovod_tpu_torch.ops.pooling import max_pool
 
 STAGE_BLOCKS = {50: (3, 4, 6, 3), 101: (3, 4, 23, 3), 152: (3, 8, 36, 3)}
 
 
 def _normal(gen, shape, std, dtype, device):
+    """N(0, std²) values from `gen`, made on the host and moved; on the
+    meta device only the shape (nothing drawn, no memory)."""
+    if torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=dtype, device="meta")
     return (torch.randn(shape, generator=gen) * std).to(dtype=dtype,
                                                         device=device)
 
@@ -84,13 +89,22 @@ class Bottleneck(nn.Module):
             self.bnp = BN(cout, dtype, device)
 
 
-class FC(nn.Module):
-    def __init__(self, cin, num_classes, gen, dtype, device):
+class Layer(nn.Module):
+    """A weight `w` of `shape`, N(0, std²) from `gen`, and a zero bias
+    `b` of `cout` values."""
+
+    def __init__(self, shape, std, cout, gen, dtype, device):
         super().__init__()
-        self.w = nn.Parameter(_normal(gen, (cin, num_classes), cin ** -0.5,
-                                      dtype, device))
-        self.b = nn.Parameter(torch.zeros(num_classes, dtype=dtype,
-                                          device=device))
+        self.w = nn.Parameter(_normal(gen, shape, std, dtype, device))
+        self.b = nn.Parameter(torch.zeros(cout, dtype=dtype, device=device))
+
+
+class FC(Layer):
+    """The classifier: w (cin, num_classes), LeCun-normal."""
+
+    def __init__(self, cin, num_classes, gen, dtype, device):
+        super().__init__((cin, num_classes), cin ** -0.5, num_classes, gen,
+                         dtype, device)
 
 
 # --------------------------------------------------------------------------
@@ -125,12 +139,6 @@ def conv1x1(x, w, stride: int = 1):
         x = x[:, ::stride, ::stride, :]
     n, h, wd, cin = x.shape
     return torch.matmul(x.reshape(n * h * wd, cin), w).reshape(n, h, wd, -1)
-
-
-def max_pool_3x3_s2(x):
-    xp = _pad_same(x, 3, 2, value=float("-inf"))
-    out = F.max_pool2d(xp.permute(0, 3, 1, 2), 3, 2)
-    return out.permute(0, 2, 3, 1).contiguous()
 
 
 def _fuse_conv_bn() -> bool:
@@ -202,7 +210,7 @@ class ResNet(nn.Module):
         new_stats: Stats = {}
         h = conv_nhwc(x, self.stem.conv, 2)
         h, new_stats["stem"] = bn(h, self.stem.bn)
-        h = max_pool_3x3_s2(torch.relu(h))
+        h = max_pool(torch.relu(h), (3, 3), (2, 2), "SAME")
         for name in self.block_names:
             blk = getattr(self, name)
             ns = {}

@@ -2,7 +2,11 @@
 eager API of horovod_tpu/ops/collectives.py): allreduce, grouped and
 bucketed allreduce, allgather and grouped_allgather, reducescatter and
 grouped_reducescatter, alltoall, broadcast, barrier, their `_async`
-forms, synchronize and poll, each over a process set.
+forms, synchronize and poll, each over a process set; and the in-place
+forms of the JAX package's torch frontend (horovod_tpu/frontends/
+torch.py): allreduce_, grouped_allreduce_, broadcast_ and their
+`_async_` forms write the result into the caller's tensors and give
+those same tensor objects back.
 
 Every collective is issued with `async_op=True`; a `Handle` holds the
 `Work` and the output, `synchronize` waits on it and `poll` reports
@@ -16,6 +20,14 @@ returns at once), which is how a dead peer surfaces in elastic mode
 synchronized: another operation with that name meanwhile raises
 DuplicateNameError. Every op takes `process_set=` (default the global
 set); a rank outside the set raises instead of joining.
+
+An in-place form runs the collective on the caller's tensor wherever the
+library can write into it (broadcast; Sum, Min and Max on the flat path;
+a fused bucket unpacked straight into the caller's contiguous tensors)
+and otherwise copies the finished result into it on the device: no
+round-trip through the host, which is what the JAX frontend does. An
+`_async_` form writes by the time `synchronize` returns (the library may
+write earlier: the tensor is the collective's buffer while in flight).
 
 Reductions follow the JAX package's `_apply_reduce`
 (horovod_tpu/ops/collectives.py:505-533):
@@ -298,6 +310,23 @@ def _joined(hs: List[Handle]) -> Handle:
     return Handle(None, hs, lambda hs: [h.wait() for h in hs])
 
 
+def _into(target: torch.Tensor, h: Handle) -> Handle:
+    """`h`, finishing by writing its result into `target` (a copy on the
+    device unless the collective already wrote there) and giving
+    `target`."""
+    finish = h._finish
+
+    def write(y):
+        if finish is not None:
+            y = finish(y)
+        if y is not target:
+            target.copy_(y)
+        return target
+
+    h._finish = write
+    return h
+
+
 def _hier_for(ps: ProcessSet, flag: bool) -> Optional[topology.Hier]:
     """The hierarchical groups where `flag` asks for them and `ps` is the
     global set (sub-sets keep the flat path)."""
@@ -368,13 +397,18 @@ def _launch(rop: T.ReduceOp, prescale: float, postscale: float,
 
 
 def _allreduce(tensor, average, name, op, prescale_factor, postscale_factor,
-               process_set) -> Handle:
+               process_set, inplace: bool = False) -> Handle:
     ps = _resolve(process_set)
     rop = _normalize_op(average, op)
     if tensor.is_sparse:
-        return _named(name, lambda: Handle(None, sparse_allreduce(
-            tensor, rop, ps, prescale_factor, postscale_factor)))
+        def go():
+            h = Handle(None, sparse_allreduce(
+                tensor, rop, ps, prescale_factor, postscale_factor))
+            return _into(tensor, h) if inplace else h
+        return _named(name, go)
     start = _launch(rop, prescale_factor, postscale_factor, ps)
+    if inplace:  # contiguous() is the tensor itself where it can be
+        return _named(name, lambda: _into(tensor, start(tensor.contiguous())))
     return _named(name, lambda: start(tensor.clone()))
 
 
@@ -400,12 +434,35 @@ def allreduce(tensor: torch.Tensor, average: Optional[bool] = None,
         process_set), True)
 
 
+def allreduce_async_(tensor: torch.Tensor, average: Optional[bool] = None,
+                     name: Optional[str] = None, op=None,
+                     prescale_factor: float = 1.0,
+                     postscale_factor: float = 1.0,
+                     process_set: Optional[ProcessSet] = None) -> Handle:
+    """Start reducing `tensor` in place; synchronize gives `tensor`."""
+    return _call(name or "allreduce", "ALLREDUCE", lambda: _allreduce(
+        tensor, average, name, op, prescale_factor, postscale_factor,
+        process_set, inplace=True), False)
+
+
+def allreduce_(tensor: torch.Tensor, average: Optional[bool] = None,
+               name: Optional[str] = None, op=None,
+               prescale_factor: float = 1.0,
+               postscale_factor: float = 1.0,
+               process_set: Optional[ProcessSet] = None) -> torch.Tensor:
+    """Reduce `tensor` across the set in place; returns `tensor`."""
+    return _call(name or "allreduce", "ALLREDUCE", lambda: _allreduce(
+        tensor, average, name, op, prescale_factor, postscale_factor,
+        process_set, inplace=True), True)
+
+
 def _fused(tensors, average, op, prescale, postscale, process_set,
-           reverse: Optional[bool], name) -> Handle:
+           reverse: Optional[bool], name, inplace: bool = False) -> Handle:
     """Start a group's reduction: Adasum tensor by tensor (its dots are
     per tensor), every other op in ≤-threshold buckets, one collective
     per bucket, packed in submission order (reverse False) or backward
-    production order (None: HOROVOD_BUCKET_REVERSE)."""
+    production order (None: HOROVOD_BUCKET_REVERSE). `inplace` writes
+    the results into `tensors` and gives that list."""
     ps = _resolve(process_set)
     rop = _normalize_op(average, op)
     start = _launch(rop, prescale, postscale, ps)
@@ -414,6 +471,9 @@ def _fused(tensors, average, op, prescale, postscale, process_set,
         if not tensors:
             return Handle(None, [])
         if rop == T.ReduceOp.ADASUM:
+            if inplace:
+                return _joined([_into(t, start(t.contiguous()))
+                                for t in tensors])
             return _joined([start(t.clone()) for t in tensors])
         cfg = topology.config()
         thresh = fusion.effective_threshold(cfg.fusion_threshold_bytes,
@@ -430,9 +490,23 @@ def _fused(tensors, average, op, prescale, postscale, process_set,
                             f"/b{next(buckets)}", "ALLREDUCE"):
                 return start(flat).wait
 
+        # In place, the buckets unpack straight into the caller's
+        # contiguous tensors; the others take a copy at the end.
+        outs = [t if t.is_contiguous() else torch.empty_like(
+            t, memory_format=torch.contiguous_format) for t in tensors] \
+            if inplace else None
         finish = fusion.fused_launch(list(tensors), launch, thresh,
-                                     reverse=rev)
-        return Handle(None, None, lambda _: finish())
+                                     reverse=rev, outs=outs)
+        if not inplace:
+            return Handle(None, None, lambda _: finish())
+
+        def write(_):
+            for t, o in zip(tensors, finish()):
+                if o is not t:
+                    t.copy_(o)
+            return list(tensors)
+
+        return Handle(None, None, write)
 
     return _named(name, go)
 
@@ -462,6 +536,33 @@ def grouped_allreduce(tensors: Sequence[torch.Tensor],
     return _call(name or "grouped_allreduce", "ALLREDUCE", lambda: _fused(
         tensors, average, op, prescale_factor, postscale_factor,
         process_set, False, name), True)
+
+
+def grouped_allreduce_async_(tensors: Sequence[torch.Tensor],
+                             average: Optional[bool] = None,
+                             name: Optional[str] = None, op=None,
+                             prescale_factor: float = 1.0,
+                             postscale_factor: float = 1.0,
+                             process_set: Optional[ProcessSet] = None
+                             ) -> Handle:
+    """Start grouped_allreduce_; synchronize gives the list `tensors`,
+    each holding its result."""
+    return _call(name or "grouped_allreduce", "ALLREDUCE", lambda: _fused(
+        tensors, average, op, prescale_factor, postscale_factor,
+        process_set, False, name, inplace=True), False)
+
+
+def grouped_allreduce_(tensors: Sequence[torch.Tensor],
+                       average: Optional[bool] = None,
+                       name: Optional[str] = None, op=None,
+                       prescale_factor: float = 1.0,
+                       postscale_factor: float = 1.0,
+                       process_set: Optional[ProcessSet] = None
+                       ) -> List[torch.Tensor]:
+    """grouped_allreduce written into `tensors`; returns that list."""
+    return _call(name or "grouped_allreduce", "ALLREDUCE", lambda: _fused(
+        tensors, average, op, prescale_factor, postscale_factor,
+        process_set, False, name, inplace=True), True)
 
 
 def bucketed_allreduce_async(tensors: Sequence[torch.Tensor],
@@ -687,12 +788,7 @@ def allgather(tensor: torch.Tensor, name: Optional[str] = None,
                  lambda: _allgather(tensor, name, process_set), True)
 
 
-def grouped_allgather(tensors: Sequence[torch.Tensor],
-                      name: Optional[str] = None,
-                      process_set: Optional[ProcessSet] = None
-                      ) -> List[torch.Tensor]:
-    """allgather of each tensor, with one size exchange for the group;
-    every gather is in flight before the first is waited on."""
+def _grouped_allgather(tensors, name, process_set) -> Handle:
     ps = _resolve(process_set)
     for t in tensors:
         _check_dims(t, "allgather")
@@ -704,8 +800,29 @@ def grouped_allgather(tensors: Sequence[torch.Tensor],
         return _joined([_gather_start(t, [r[i] for r in rows], ps)
                         for i, t in enumerate(tensors)])
 
+    return _named(name, go)
+
+
+def grouped_allgather_async(tensors: Sequence[torch.Tensor],
+                            name: Optional[str] = None,
+                            process_set: Optional[ProcessSet] = None
+                            ) -> Handle:
+    """Start grouped_allgather; one handle for the group, which gives the
+    list of results."""
     return _call(name or "grouped_allgather", "ALLGATHER",
-                 lambda: _named(name, go), True)
+                 lambda: _grouped_allgather(tensors, name, process_set),
+                 False)
+
+
+def grouped_allgather(tensors: Sequence[torch.Tensor],
+                      name: Optional[str] = None,
+                      process_set: Optional[ProcessSet] = None
+                      ) -> List[torch.Tensor]:
+    """allgather of each tensor, with one size exchange for the group;
+    every gather is in flight before the first is waited on."""
+    return _call(name or "grouped_allgather", "ALLGATHER",
+                 lambda: _grouped_allgather(tensors, name, process_set),
+                 True)
 
 
 # -------------------------------------------------------- reducescatter
@@ -786,6 +903,29 @@ def reducescatter(tensor: torch.Tensor, op=T.ReduceOp.AVERAGE,
         True)
 
 
+def _grouped_rs(tensors, op, name, prescale_factor, postscale_factor,
+                process_set) -> Handle:
+    ps = _resolve(process_set)
+    rop = _rs_op(op)
+    return _named(name, lambda: _joined([
+        _rs_start(t, rop, prescale_factor, postscale_factor, ps)
+        for t in tensors]))
+
+
+def grouped_reducescatter_async(tensors: Sequence[torch.Tensor],
+                                op=T.ReduceOp.AVERAGE,
+                                name: Optional[str] = None,
+                                prescale_factor: float = 1.0,
+                                postscale_factor: float = 1.0,
+                                process_set: Optional[ProcessSet] = None
+                                ) -> Handle:
+    """Start grouped_reducescatter; one handle for the group, which gives
+    the list of results."""
+    return _call(name or "grouped_reducescatter", "REDUCESCATTER",
+                 lambda: _grouped_rs(tensors, op, name, prescale_factor,
+                                     postscale_factor, process_set), False)
+
+
 def grouped_reducescatter(tensors: Sequence[torch.Tensor],
                           op=T.ReduceOp.AVERAGE,
                           name: Optional[str] = None,
@@ -795,15 +935,9 @@ def grouped_reducescatter(tensors: Sequence[torch.Tensor],
                           ) -> List[torch.Tensor]:
     """reducescatter of each tensor, all in flight before the first is
     waited on."""
-    ps = _resolve(process_set)
-    rop = _rs_op(op)
-
-    def go() -> Handle:
-        return _joined([_rs_start(t, rop, prescale_factor, postscale_factor,
-                                  ps) for t in tensors])
-
     return _call(name or "grouped_reducescatter", "REDUCESCATTER",
-                 lambda: _named(name, go), True)
+                 lambda: _grouped_rs(tensors, op, name, prescale_factor,
+                                     postscale_factor, process_set), True)
 
 
 # ------------------------------------------------------------- alltoall
@@ -862,14 +996,16 @@ def alltoall(tensor: torch.Tensor, splits=None, name: Optional[str] = None,
 
 # ------------------------------------------------- broadcast and barrier
 
-def _broadcast(tensor, root_rank, name, process_set) -> Handle:
+def _broadcast(tensor, root_rank, name, process_set,
+               inplace: bool = False) -> Handle:
     ps = _resolve(process_set)
     ps.rank_index(root_rank)  # the root must be a member
 
     def go() -> Handle:
-        out = tensor.clone()
-        return Handle(dist.broadcast(out, src=root_rank, group=ps.group,
-                                     async_op=True), out)
+        out = tensor.contiguous() if inplace else tensor.clone()
+        h = Handle(dist.broadcast(out, src=root_rank, group=ps.group,
+                                  async_op=True), out)
+        return _into(tensor, h) if inplace else h
 
     return _named(name, go)
 
@@ -891,16 +1027,22 @@ def broadcast(tensor: torch.Tensor, root_rank: int,
         tensor, root_rank, name, process_set), True)
 
 
+def broadcast_async_(tensor: torch.Tensor, root_rank: int,
+                     name: Optional[str] = None,
+                     process_set: Optional[ProcessSet] = None) -> Handle:
+    """Start broadcasting the root's tensor into `tensor` on every member;
+    synchronize gives `tensor`."""
+    return _call(name or "broadcast", "BROADCAST", lambda: _broadcast(
+        tensor, root_rank, name, process_set, inplace=True), False)
+
+
 def broadcast_(tensor: torch.Tensor, root_rank: int,
+               name: Optional[str] = None,
                process_set: Optional[ProcessSet] = None) -> torch.Tensor:
     """In-place broadcast of `tensor` from the root rank (a global rank,
-    a member of the set)."""
-    ps = _resolve(process_set)
-    ps.rank_index(root_rank)
-    with instrument("broadcast", "BROADCAST"):
-        dist.broadcast(tensor, src=root_rank, group=ps.group,
-                       async_op=True).wait()
-    return tensor
+    a member of the set); returns `tensor`."""
+    return _call(name or "broadcast", "BROADCAST", lambda: _broadcast(
+        tensor, root_rank, name, process_set, inplace=True), True)
 
 
 def barrier(process_set: Optional[ProcessSet] = None) -> None:

@@ -17,7 +17,7 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import math
-from typing import Callable, List, Sequence, Tuple, Union
+from typing import Callable, List, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -133,25 +133,28 @@ def unpack(bucket: Bucket, flat: torch.Tensor,
 def fused_launch(tensors: Sequence[torch.Tensor],
                  launch: Callable[[torch.Tensor], Callable[[], torch.Tensor]],
                  threshold_bytes: int,
-                 reverse: bool = False
+                 reverse: bool = False,
+                 outs: Optional[Sequence[torch.Tensor]] = None
                  ) -> Callable[[], List[torch.Tensor]]:
     """Start one collective per fusion bucket of `tensors`.
 
     `launch(flat)` starts the collective on a fused 1-D tensor and returns
     a function that waits and gives the reduced flat tensor. Returns a
-    function that waits on every bucket and gives new tensors of the
-    inputs' shapes and dtypes."""
+    function that waits on every bucket and gives the results: new
+    tensors of the inputs' shapes and dtypes, or `outs` (contiguous
+    tensors of those shapes and dtypes) written in place."""
     plan = plan_buckets([(tuple(t.shape), t.dtype) for t in tensors],
                         threshold_bytes, reverse=reverse)
     waits = [(b, launch(pack(b, tensors))) for b in plan]
 
     def finish() -> List[torch.Tensor]:
-        outs = [torch.empty(t.shape, dtype=t.dtype, device=t.device)
-                for t in tensors]
-        flat_outs = [o.view(-1) for o in outs]
+        res = list(outs) if outs is not None else [
+            torch.empty(t.shape, dtype=t.dtype, device=t.device)
+            for t in tensors]
+        flat_outs = [o.view(-1) for o in res]
         for b, wait in waits:
             unpack(b, wait(), flat_outs)
-        return outs
+        return res
 
     return finish
 

@@ -34,10 +34,15 @@ def broadcast_parameters(params: Params, root_rank: int = 0,
     items = params.items() if isinstance(params, Mapping) else params
     for _name, t in sorted(items, key=lambda kv: kv[0]):
         if t.is_contiguous():
-            collectives.broadcast_(t.data, root_rank, process_set)
+            collectives.broadcast_(t.data, root_rank,
+                                   process_set=process_set)
         else:
             t.copy_(collectives.broadcast_(t.contiguous(), root_rank,
-                                           process_set))
+                                           process_set=process_set))
+
+
+# TF-parity name (hvd.broadcast_variables), as in the JAX package.
+broadcast_variables = broadcast_parameters
 
 
 def _on_device(t: torch.Tensor) -> torch.Tensor:

@@ -1,10 +1,12 @@
-"""ResNet synthetic benchmark, PyTorch twin of examples/synthetic_benchmark.py.
+"""Synthetic benchmark, PyTorch twin of examples/synthetic_benchmark.py.
 
 Random data, fixed image shape; prints images/sec per iteration. Each
 process trains on its own GPU: hvd.init(), broadcast of rank 0's
 weights, DistributedOptimizer over SGD(lr 0.01·size, momentum 0.9) with
-the bucketed NCCL all-reduce, sync-BN over the world (the JAX
-benchmark's axis_name="hvd").
+the bucketed NCCL all-reduce. The models are the JAX benchmark's:
+ResNet-50/101/152 and Inception V3 (sync-BN over the world, the JAX
+benchmark's axis_name="hvd"; their batch stats installed after each
+step) and VGG-16/19 (no batch stats).
 
 Run, one process per GPU, through the launcher:
     python -m horovod_tpu_torch.runner.launch -np 8 \\
@@ -17,8 +19,12 @@ keys:
     python -m horovod_tpu_torch.synthetic_benchmark --scaling-report 8
 
 The flags are the JAX benchmark's, plus --device (cuda, or cpu for gloo
-on the host; N is then bounded by nothing but the caller). Only the
-ResNets are ported. Under the launcher's --autotune flags (or
+on the host; N is then bounded by nothing but the caller):
+    python -m horovod_tpu_torch.synthetic_benchmark --model vgg16
+    python -m horovod_tpu_torch.synthetic_benchmark --model inception3 \\
+        --device cpu --batch-size 2 --image-size 75
+Inception's --image-size defaults to 299, the others' to 224. Under the
+launcher's --autotune flags (or
 HOROVOD_BUCKET_AUTOTUNE=1), rank 0 prints each tuner sample or
 decision, with the buckets a step that its threshold plans, and the
 frozen choice; the last line before the rate says whether every step's
@@ -37,7 +43,7 @@ import torch.distributed as dist
 
 import horovod_tpu_torch as hvd
 from horovod_tpu_torch.core import topology
-from horovod_tpu_torch.models import resnet
+from horovod_tpu_torch.models import inception, resnet, vgg
 
 
 def parse_args(argv=None):
@@ -66,13 +72,21 @@ def parse_args(argv=None):
     return args
 
 
-def build(model_name: str, dtype, device, seed: int = 0):
-    """The model for one rank, rank 0's weights broadcast."""
-    if not model_name.startswith("resnet"):
-        raise SystemExit(f"--model {model_name}: only the ResNets are "
-                         f"ported to PyTorch so far")
-    model = resnet.ResNet(depth=int(model_name[len("resnet"):]),
-                          dtype=dtype, device=device, seed=seed)
+def build(model_name: str, dtype, device, seed: int = 0,
+          image_size: int = 224):
+    """The model for one rank (1000 classes), rank 0's weights
+    broadcast. `image_size` sizes VGG's fc0; the others pool to 1x1."""
+    if model_name.startswith("resnet"):
+        model = resnet.ResNet(depth=int(model_name[len("resnet"):]),
+                              dtype=dtype, device=device, seed=seed)
+    elif model_name.startswith("vgg"):
+        model = vgg.VGG(depth=int(model_name[len("vgg"):]), dtype=dtype,
+                        image_size=image_size, device=device, seed=seed)
+    elif model_name == "inception3":
+        model = inception.InceptionV3(dtype=dtype, device=device, seed=seed)
+    else:
+        raise SystemExit(f"--model {model_name}: not a model of the "
+                         f"benchmark")
     hvd.broadcast_parameters(model.state_dict(), root_rank=0)
     return model
 
@@ -94,12 +108,20 @@ def make_batch(batch: int, image_size: int, dtype, device, seed: int):
 
 
 def train_step(model, opt, batch, group) -> torch.Tensor:
-    """One data-parallel step; returns the (local) loss."""
+    """One data-parallel step; returns the (local) loss. A model with
+    batch stats (ResNet, Inception) installs the new ones after the
+    step; VGG has none."""
     opt.zero_grad()
-    loss, new_stats = resnet.loss_fn(model, batch, train=True, group=group)
+    if isinstance(model, vgg.VGG):
+        loss, new_stats = vgg.loss_fn(model, batch), None
+    else:
+        fam = inception if isinstance(model, inception.InceptionV3) \
+            else resnet
+        loss, new_stats = fam.loss_fn(model, batch, train=True, group=group)
     loss.backward()
     opt.step()
-    model.set_stats(new_stats)
+    if new_stats is not None:
+        model.set_stats(new_stats)
     return loss.detach()
 
 
@@ -117,7 +139,7 @@ def run_bench(args, quiet: bool = False) -> float:
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
     dev = hvd.device()
     k = hvd.size()
-    model = build(args.model, dtype, dev)
+    model = build(args.model, dtype, dev, image_size=args.image_size)
     opt = make_optimizer(model, hvd.Compression.fp16 if
                          args.fp16_allreduce else hvd.Compression.none)
     batch = make_batch(args.batch_size, args.image_size, dtype, dev,
@@ -125,7 +147,8 @@ def run_bench(args, quiet: bool = False) -> float:
     group = dist.group.WORLD
     if hvd.rank() == 0:
         print(f"Model: {args.model}, batch {args.batch_size}/rank, "
-              f"{k} rank(s), dtype {args.dtype}, {_device_name(dev)}")
+              f"{args.image_size}² images, {k} rank(s), dtype "
+              f"{args.dtype}, {_device_name(dev)}")
         print(f"World: {k} rank(s) joined over {topology.rendezvous()} "
               f"({dist.get_backend()})")
     losses = [train_step(model, opt, batch, group)
