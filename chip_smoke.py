@@ -197,6 +197,28 @@ Phases, each fatal on failure:
      inception3 prints its img/s, and with two or more cards
      `--scaling-report min(4, count) --model vgg16` its JSON line
      (recorded); with one card it says so.
+ 13. observability and the control plane — (a) the phase-4 ResNet-50
+     step (2 warm-up and 5 timed steps) with metrics, flight and tracing
+     at their defaults (on), and from the same weights and batch with
+     HOROVOD_METRICS=0 HOROVOD_FLIGHT=0 HOROVOD_TRACE=0, four runs each
+     in ABBA order: equal losses
+     (cudnn.deterministic), 28 launches each of kernels 1 and 2 a step,
+     `hvd.metrics()` counting the calls and bytes the bucket plan
+     implies; ms/step on and off and the ratio of their medians,
+     and the stall watchdog's host µs a bucket; (b) `runner.launch -np
+     1` of the synthetic benchmark with --stall-check,
+     HOROVOD_CHECK_COLLECTIVES=1, the native KV server and
+     HOROVOD_FLIGHT_DIR: `GET /metrics` scraped while it runs holds rank
+     0's collective counters, and the flight tail, the trace spans and
+     the exit dump are in the directory at its end; with two or more
+     cards a world of min(4, count) with the consistency check, then one
+     in which rank 1 sleeps past the shutdown window as it launches its
+     first gradient bucket (a `collective.dispatch` latency fault): every
+     other rank raises HorovodInternalError naming the collective it
+     waits on (the backward's sync-BN all-reduce) within
+     STALL_WINDOW_S + STALL_MARGIN_S of the step's dispatch, and each
+     rank's flight records name the bucketed all-reduce; with one card
+     it says so.
 Then the `kernels` JSON line, the card's name and power limit, and last
 {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
 
@@ -3091,6 +3113,398 @@ def vgg19_step():
     return loss
 
 
+# ------------------------------------- phase 13: observability, control
+
+OBS_OFF = {"HOROVOD_METRICS": "0", "HOROVOD_FLIGHT": "0",
+           "HOROVOD_TRACE": "0"}
+STALL_WINDOW_S = 10     # phase 13 (b), two or more cards: the shutdown
+STALL_MARGIN_S = 5.0    # window, and what the raise may lag it by (the
+                        # backward pass before the wait, the poll, the
+                        # NCCL abort, the flight dump)
+
+
+def _observability_anew(env: dict) -> None:
+    """Set or clear the observability gates and drop the process's
+    registry, recorder and tracer, so the next use reads them anew."""
+    from horovod_tpu_torch.observability import flight, metrics, tracing
+    for k in OBS_OFF:
+        if k in env:
+            os.environ[k] = env[k]
+        else:
+            os.environ.pop(k, None)
+    metrics.reset_for_tests()
+    flight.reset_for_tests()
+    tracing.reset_for_tests()
+
+
+def _median(xs):
+    xs = sorted(xs)
+    n = len(xs)
+    return xs[n // 2] if n % 2 else (xs[n // 2 - 1] + xs[n // 2]) / 2
+
+
+def _allreduce_counts(snap: dict) -> tuple:
+    """(calls, bytes) of op allreduce in a metrics snapshot, all dtypes."""
+    fams = snap.get("families", {})
+
+    def total(name):
+        return sum(s["value"] for s in fams.get(name, {}).get("series", [])
+                   if s["labels"][0] == "allreduce")
+
+    return (total("horovod_collective_calls_total"),
+            total("horovod_collective_bytes_total"))
+
+
+def watchdog_us(dev, n: int = 3000) -> dict:
+    """Host µs of one wait on a finished bucket's Work: the bare
+    `Work.wait()`, `guarded_wait` with the defaults (the stall
+    inspector's bookkeeping) and with a shutdown window (the polling
+    watchdog)."""
+    import torch
+    import torch.distributed as dist
+    from horovod_tpu_torch.core import topology
+    from horovod_tpu_torch.ops import collectives
+    x = torch.ones(1024, device=dev)
+    work = dist.all_reduce(x, async_op=True)
+    work.wait()
+    torch.cuda.synchronize()
+    cfg = topology.config()
+
+    def per_call(fn):
+        fn()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        return (time.perf_counter() - t0) / n * 1e6
+
+    out = {"bare_us": per_call(work.wait), "default_us": per_call(
+        lambda: collectives.guarded_wait(work, "bucketed_allreduce/b0"))}
+    saved = cfg.stall_shutdown_seconds
+    cfg.stall_shutdown_seconds = 120.0
+    try:
+        out["window_us"] = per_call(
+            lambda: collectives.guarded_wait(work, "bucketed_allreduce/b0"))
+    finally:
+        cfg.stall_shutdown_seconds = saved
+    out["default_extra_us"] = out["default_us"] - out["bare_us"]
+    out["window_extra_us"] = out["window_us"] - out["bare_us"]
+    return out
+
+
+def observability_in_process(warmup: int = 2, timed: int = 5) -> dict:
+    """Phase 13 (a): the phase-4 ResNet-50 step (224², bf16, batch 32,
+    HOROVOD_CONV_BLOCK=1) with metrics, flight and tracing at their
+    defaults (on), then from the same weights and batch with all three
+    off, four times each in ABBA order (the host-bound step moves
+    between runs by more than the cost sought): equal losses, 28
+    launches each of kernels 1 and 2 a step, the metrics' calls and
+    bytes those of the bucket plan; ms/step on and off, the ratio of
+    their medians; the watchdog's host µs a bucket."""
+    import torch
+    import torch.distributed as dist
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import synthetic_benchmark as sb
+    saved = {k: os.environ.get(k) for k in
+             ("HOROVOD_CONV_BLOCK", "HOROVOD_FUSE_CONV_BN", *OBS_OFF)}
+    det = torch.backends.cudnn.deterministic
+    os.environ.update(HOROVOD_CONV_BLOCK="1", HOROVOD_FUSE_CONV_BN="0")
+    torch.backends.cudnn.deterministic = True
+    _observability_anew({})
+    hvd.init()
+    try:
+        dev = hvd.device()
+        need(dev.type == "cuda", "phase 13 is not on the card")
+        model = sb.build("resnet50", torch.bfloat16, dev)
+        opt = sb.make_optimizer(model)
+        data = sb.make_batch(32, 224, torch.bfloat16, dev, seed=hvd.rank())
+        group = dist.group.WORLD
+        snap_m = copy.deepcopy(model.state_dict())
+        snap_o = copy.deepcopy(opt.state_dict())
+        steps = warmup + timed
+        runs = []
+        for mode in ("on", "off", "off", "on") * 2:
+            _observability_anew(OBS_OFF if mode == "off" else {})
+            model.load_state_dict(snap_m)
+            opt.load_state_dict(snap_o)
+            losses, ips, ms, counts = drive(sb, model, opt, data, group,
+                                            warmup, timed)
+            calls, nbytes = _allreduce_counts(hvd.metrics())
+            runs.append(dict(mode=mode, losses=losses, img_per_s=ips,
+                             step_ms=ms, launches=counts, calls=calls,
+                             bytes=nbytes))
+            print(f"(a) observability {mode}: {ms:.2f} ms/step, {ips:.1f} "
+                  f"img/s; losses {[round(v, 6) for v in losses]}; "
+                  f"launches {counts}; allreduce calls {calls:.0f}, bytes "
+                  f"{nbytes:.0f}")
+            need(counts["fwd"] == 28 * steps
+                 and counts["act_bwd"] == 28 * steps,
+                 f"phase 13 (a) {mode}: expected 28 + 28 launches a step, "
+                 f"got {counts}")
+        want_calls = steps * len(opt.plan)
+        want_bytes = steps * opt.plan_bytes * hvd.size()
+        for r in runs:
+            need(r["losses"] == runs[0]["losses"],
+                 f"phase 13 (a): the losses with observability {r['mode']} "
+                 f"differ: {r['losses']} against {runs[0]['losses']}")
+            if r["mode"] == "on":
+                need(r["calls"] == want_calls and r["bytes"] == want_bytes,
+                     f"phase 13 (a): metrics count {r['calls']} calls, "
+                     f"{r['bytes']} bytes; the bucket plan implies "
+                     f"{want_calls}, {want_bytes}")
+            else:
+                need(r["calls"] == 0, "phase 13 (a): HOROVOD_METRICS=0 "
+                     "still counted")
+        on = [r["step_ms"] for r in runs if r["mode"] == "on"]
+        off = [r["step_ms"] for r in runs if r["mode"] == "off"]
+        ratio = _median(on) / _median(off)
+        wd = watchdog_us(dev)
+        out = dict(runs=runs, buckets=len(opt.plan),
+                   plan_bytes=opt.plan_bytes, want_calls=want_calls,
+                   want_bytes=want_bytes, on_ms=on, off_ms=off,
+                   ratio=ratio, watchdog=wd,
+                   per_step_watchdog_us=wd["default_extra_us"]
+                   * len(opt.plan))
+        print(f"(a) ms/step with observability on {on}, off {off}: ratio "
+              f"of the medians {ratio:.4f}; {len(opt.plan)} buckets a step, "
+              f"metrics "
+              f"{want_calls} calls and {want_bytes} bytes over {steps} "
+              f"steps as the plan implies")
+        print(f"(a) watchdog host µs a bucket: bare Work.wait "
+              f"{wd['bare_us']:.2f}, guarded {wd['default_us']:.2f} "
+              f"(+{wd['default_extra_us']:.2f}), with a shutdown window "
+              f"{wd['window_us']:.2f} (+{wd['window_extra_us']:.2f})")
+        for h in opt._hooks:
+            h.remove()
+        del model, opt
+    finally:
+        hvd.shutdown()
+        torch.backends.cudnn.deterministic = det
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        _observability_anew({k: v for k, v in saved.items()
+                             if k in OBS_OFF and v is not None})
+        torch.cuda.empty_cache()
+    return out
+
+
+def _scrape_while_running(cmd, env, port_file, dtype="bfloat16",
+                          timeout=600):
+    """Run `cmd` in its own session; while it runs, scrape `GET /metrics`
+    from the rendezvous endpoint it announces until rank 0's collective
+    counters show. Returns (exit code, output, scrape text, scrape ms)."""
+    import signal
+    import urllib.request
+    root = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.Popen(cmd, cwd=root, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    chunks = []
+    reader = __import__("threading").Thread(
+        target=lambda: chunks.append(proc.stdout.read()), daemon=True)
+    reader.start()
+    end = time.monotonic() + timeout
+    text, scrape_ms = "", []
+    want = ('horovod_collective_calls_total{op="allreduce",'
+            f'dtype="{dtype}",rank="0"}}')
+    while proc.poll() is None and time.monotonic() < end:
+        try:
+            ep = open(port_file).read().split(",")[0]
+            t0 = time.perf_counter()
+            text = urllib.request.urlopen(f"http://{ep}/metrics",
+                                          timeout=5).read().decode()
+            scrape_ms.append((time.perf_counter() - t0) * 1e3)
+            if want in text:
+                break
+        except (OSError, ValueError):
+            pass
+        time.sleep(0.5)
+    try:
+        proc.wait(timeout=max(1.0, end - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        proc.terminate()
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+        raise Failed(f"{' '.join(cmd)}: still running after {timeout} s")
+    reader.join(30)
+    return proc.returncode, "".join(chunks), text, scrape_ms
+
+
+def observability_launched(bench_extra=(), dtype="bfloat16",
+                           multi: bool = True) -> dict:
+    """Phase 13 (b): `runner.launch -np 1` of the synthetic benchmark
+    with --stall-check, HOROVOD_CHECK_COLLECTIVES=1, the native KV server
+    and HOROVOD_FLIGHT_DIR; `GET /metrics` scraped while it runs must
+    hold rank 0's collective counters, and at exit the flight tail, the
+    trace spans and the exit dump must be in the directory. With two or
+    more cards, a world of min(4, count) with the consistency check, and
+    one in which rank 1 sleeps past the shutdown window as it launches
+    its first gradient bucket: every other rank raises
+    HorovodInternalError naming the collective it waits on within the
+    window plus STALL_MARGIN_S, and each rank's flight records name the
+    bucketed all-reduce. `bench_extra` (the benchmark's flags) and
+    `dtype` let the same checks run on the host (--device cpu)."""
+    import shutil
+    import torch
+    py = sys.executable
+    base = os.path.join("chiprun_out", "observe13")
+    shutil.rmtree(base, ignore_errors=True)
+    os.makedirs(base)
+    flight = os.path.join(base, "flight")
+    port_file = os.path.join(base, "rdv.port")
+    env = dict(os.environ, HOROVOD_CONV_BLOCK="1", HOROVOD_FUSE_CONV_BN="0",
+               HOROVOD_CHECK_COLLECTIVES="1", HOROVOD_FLIGHT_DIR=flight,
+               HOROVOD_RENDEZVOUS_PORT_FILE=port_file,
+               HOROVOD_METRICS_PUSH_INTERVAL="0.5")
+    cmd = [py, "-m", "horovod_tpu_torch.runner.launch", "-np", "1",
+           "--stall-check", "--stall-check-warning-time-seconds", "60",
+           "--stall-check-shutdown-time-seconds", "120", py, "-m",
+           "horovod_tpu_torch.synthetic_benchmark", "--batch-size", "32",
+           "--num-iters", "6", *bench_extra]
+    t0 = time.perf_counter()
+    rc, text, scrape, scrape_ms = _scrape_while_running(cmd, env, port_file,
+                                                        dtype)
+    print("\n".join("(b) launch: " + ln for ln in text.splitlines()
+                    if "<stdout>:" in ln))
+    need(rc == 0, f"phase 13 (b): the launched benchmark exited {rc}: "
+         f"{text[-3000:]}")
+    plane = [json.loads(ln.split("Control plane: ", 1)[1])
+             for ln in text.splitlines() if "Control plane: " in ln]
+    need(len(plane) == 1 and plane[0]["native"] == "native"
+         and plane[0]["native_kv"] and plane[0]["stall_check"]
+         and plane[0]["stall_check"]["shutdown_s"] == 120
+         and plane[0]["metrics"] and plane[0]["flight"]
+         and plane[0]["trace"],
+         f"phase 13 (b): the control plane is not all on: {plane}")
+    want = ('horovod_collective_calls_total{op="allreduce",'
+            f'dtype="{dtype}",rank="0"}}')
+    got = [ln for ln in scrape.splitlines() if ln.startswith(want)]
+    need(bool(got), "phase 13 (b): the /metrics scrape does not hold rank "
+         "0's collective counters")
+    files = sorted(os.listdir(flight))
+    need({"kv-tail-rank-0.r0.json", "trace-kv-rank-0.r0.json", "0.json",
+          "perf-rank-0.r0.json"} <= set(files),
+         f"phase 13 (b): the flight directory holds {files}")
+    tail = json.load(open(os.path.join(flight, "kv-tail-rank-0.r0.json")))
+    spans = json.load(open(os.path.join(flight, "trace-kv-rank-0.r0.json")))
+    coll = [e for e in tail["events"] if e[2] == "collective"]
+    steps = [t for t in spans.get("traces", [])
+             if any(s["name"] == "train.step" for s in t["spans"])]
+    need(bool(coll) and bool(steps), "phase 13 (b): no collective record "
+         "in the flight tail or no train.step span in the trace")
+    out = dict(control_plane=plane[0], scrape_line=got[0],
+               scrape_ms=scrape_ms, flight_files=files,
+               tail_collectives=len(coll), trace_steps=len(steps),
+               seconds=time.perf_counter() - t0)
+    print(f"(b) control plane {plane[0]}; scrape {got[0]} "
+          f"({len(scrape_ms)} scrapes, last {scrape_ms[-1]:.2f} ms); "
+          f"flight directory {files}; {len(coll)} collective records in "
+          f"the tail, {len(steps)} train.step traces; "
+          f"{out['seconds']:.1f} s")
+    cards = torch.cuda.device_count()
+    if not multi:
+        return out
+    if cards < 2:
+        print("phase 13 (b): one card; the world of min(4, count) and the "
+              "stalled rank need two or more")
+        out["world"] = None
+        return out
+    out["world"] = observability_world(min(4, cards), base)
+    return out
+
+
+def observability_world(n: int, base: str, bench_extra=()) -> dict:
+    """Phase 13 (b) with n cards: a run with the consistency check, then
+    the stalled rank (see observability_launched)."""
+    py = sys.executable
+    out = {}
+    bench = [py, "-m", "horovod_tpu_torch.synthetic_benchmark",
+             "--batch-size", "32", "--num-iters", "2", *bench_extra]
+    env = dict(os.environ, HOROVOD_CONV_BLOCK="1", HOROVOD_FUSE_CONV_BN="0",
+               HOROVOD_CONSISTENCY_CHECK="1")
+    rc, text = run_bounded([py, "-m", "horovod_tpu_torch.runner.launch",
+                            "-np", str(n), *bench], 600, env=env)
+    plane = [json.loads(ln.split("Control plane: ", 1)[1])
+             for ln in text.splitlines() if "Control plane: " in ln]
+    need(rc == 0 and plane and plane[0]["consistency_check"],
+         f"phase 13 (b): the world of {n} with the consistency check: rc "
+         f"{rc}, {plane}: {text[-3000:]}")
+    rate = [float(ln.rsplit(":", 1)[1]) for ln in text.splitlines()
+            if "Img/sec per rank:" in ln]
+    out["checked"] = dict(img_per_s_per_rank=rate[0] if rate else None,
+                          control_plane=plane[0])
+    print(f"(b) world of {n} with the consistency check: {rate} img/s per "
+          f"rank; {plane[0]}")
+    flight = os.path.join(base, f"flight{n}")
+    env.update(HOROVOD_FLIGHT_DIR=flight, HOROVOD_FAULT_SPEC=(
+        "site=collective.dispatch,kind=latency,"
+        f"ms={int(STALL_WINDOW_S * 2500)},"
+        "match=rank1:bucketed_allreduce,count=1"))
+    t0 = time.perf_counter()
+    rc, text = run_bounded(
+        [py, "-m", "horovod_tpu_torch.runner.launch", "-np", str(n),
+         "--stall-check-warning-time-seconds", str(STALL_WINDOW_S // 2),
+         "--stall-check-shutdown-time-seconds", str(STALL_WINDOW_S),
+         *bench], 600, env=env)
+    need(rc != 0, "phase 13 (b): the stalled world exited 0")
+    raised = {}
+    for r in range(n):
+        lines = [ln for ln in text.splitlines()
+                 if ln.startswith(f"[{r}]") and "HorovodInternalError" in ln
+                 and "stalled past HOROVOD_STALL_SHUTDOWN_TIME_SECONDS="
+                 f"{STALL_WINDOW_S}s" in ln]
+        if lines:
+            raised[r] = lines[0].split("HorovodInternalError: ", 1)[-1]
+    others = [r for r in range(n) if r != 1]
+    need(set(others) <= set(raised),
+         f"phase 13 (b): ranks {sorted(set(others) - set(raised))} did not "
+         f"raise HorovodInternalError: {text[-4000:]}")
+    lags, named = {}, {}
+    for r in range(n):
+        body = None
+        for name in (f"{r}.json", f"kv-tail-rank-{r}.r0.json"):
+            path = os.path.join(flight, name)
+            if os.path.exists(path):
+                body = json.load(open(path))
+                break
+        need(body is not None, f"phase 13 (b): no flight record of rank {r}")
+        evs = body["events"]
+        named[r] = any("bucketed_allreduce" in str(e[3]) for e in evs)
+        stall = [e for e in evs if e[2] == "stall" and "past" in e[3]]
+        disp = [e for e in evs if e[2] == "collective"
+                and e[4] == "bucketed_allreduce"]
+        if r != 1:
+            need(bool(stall) and bool(disp), f"phase 13 (b): rank {r}'s "
+                 f"flight dump has no stall or no dispatch record")
+            lags[r] = stall[-1][1] - disp[-1][1]
+            need(STALL_WINDOW_S <= lags[r] <= STALL_WINDOW_S
+                 + STALL_MARGIN_S, f"phase 13 (b): rank {r} raised "
+                 f"{lags[r]:.2f} s after the step's dispatch")
+    need(all(named.values()), f"phase 13 (b): flight records naming the "
+         f"all-reduce: {named}")
+    out["stalled"] = dict(raised=raised, lag_s=lags, named=named,
+                          seconds=time.perf_counter() - t0)
+    print(f"(b) stalled rank 1 in a world of {n}: ranks {sorted(raised)} "
+          f"raised {set(raised.values())}; dispatch to raise "
+          f"{ {r: round(v, 3) for r, v in lags.items()} } s (window "
+          f"{STALL_WINDOW_S} s, margin {STALL_MARGIN_S} s); flight records "
+          f"name it {named}")
+    return out
+
+
+def observability_path() -> dict:
+    """Phase 13: (a) then (b)."""
+    t0 = time.perf_counter()
+    out = {"a": observability_in_process(), "b": observability_launched()}
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3164,6 +3578,8 @@ def main() -> int:
     lap("11 sequence parallelism")
     others = other_models_path()
     lap("12 other models and the API surface")
+    observability = observability_path()
+    lap("13 observability and the control plane")
     print(f"total: {time.perf_counter() - t0:.1f} s")
 
     src = "horovod_tpu_torch/csrc/"
@@ -3211,6 +3627,7 @@ def main() -> int:
                    "elastic_path": elastic_run,
                    "sequence_parallel_path": sp_run,
                    "other_models_path": others,
+                   "observability_path": observability,
                    "phase_s": phase_s,
                    "nvidia_smi": smi}, f, indent=1)
     print(json.dumps(line))

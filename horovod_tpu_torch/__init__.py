@@ -35,17 +35,29 @@ queries (`nccl_built()`, `cuda_built()`, ...) answer from torch's own
 build; `hvd.SyncBatchNorm` is the count-weighted cross-rank BN of the
 JAX package (its conventions, not `torch.nn.SyncBatchNorm`'s). The
 synthetic benchmark trains ResNet-50/101/152, VGG-16/19 and Inception
-V3 (`horovod_tpu_torch.models`, with the MLP). The package imports
-neither JAX nor horovod_tpu.
+V3 (`horovod_tpu_torch.models`, with the MLP). The runtime control
+plane and observability are the JAX package's: `hvd.metrics()` and
+`metrics_text()` read the process's metrics registry, which the
+launcher's rendezvous server serves job-wide at `GET /metrics`; every
+rank keeps a flight recorder (dumped into HOROVOD_FLIGHT_DIR on a
+stall, a divergence, SIGUSR1 and exit) and a span per training step;
+the stall watchdog bounds every collective wait under
+--stall-check-shutdown-time-seconds; a launched job checks that its
+ranks call the same collectives (CollectiveMismatchError,
+VersionMismatchError) and, under HOROVOD_CHECK_COLLECTIVES, their
+rolling fingerprints (CollectiveDivergenceError); and
+HOROVOD_KV_REPLICAS > 1 replicates the rendezvous control plane. The
+package imports neither JAX nor horovod_tpu.
 """
 
 from horovod_tpu_torch.common.types import (  # noqa: F401
     Adasum, Average, Max, Min, Product, ReduceOp, Status, StatusType, Sum,
 )
 from horovod_tpu_torch.common.exceptions import (  # noqa: F401
-    CheckpointCorruptError, DuplicateNameError, HorovodError,
+    CheckpointCorruptError, CollectiveDivergenceError,
+    CollectiveMismatchError, DuplicateNameError, HorovodError,
     HorovodInternalError, HostsUpdatedInterrupt, KernelError,
-    TensorShapeMismatchError,
+    TensorShapeMismatchError, VersionMismatchError,
 )
 from horovod_tpu_torch.core.topology import (  # noqa: F401
     ccl_built, cross_rank, cross_size, cuda_built, ddl_built, device,
@@ -61,6 +73,7 @@ from horovod_tpu_torch.core.process_sets import (  # noqa: F401
 )
 from horovod_tpu_torch.ops.collectives import (  # noqa: F401
     Handle, allgather, allgather_async, allreduce, allreduce_,
+    bucket_overlap_stats,
     allreduce_async, allreduce_async_, alltoall, alltoall_async, barrier,
     broadcast, broadcast_, broadcast_async, broadcast_async_,
     bucketed_allreduce, bucketed_allreduce_async, grouped_allgather,
@@ -85,6 +98,23 @@ from horovod_tpu_torch.optim.functions import (  # noqa: F401
 from horovod_tpu_torch import elastic  # noqa: F401,E402
 
 __version__ = "0.1.0"
+
+
+def metrics() -> dict:
+    """This process's metrics registry as a plain-JSON snapshot
+    (observability/metrics.py). Works before init(); after init() the
+    snapshot carries this process's rank."""
+    from horovod_tpu_torch.core import topology
+    from horovod_tpu_torch.observability import metrics as m
+    return m.registry().snapshot(topology.rank_or_none())
+
+
+def metrics_text() -> str:
+    """This process's metrics in Prometheus text exposition format: what
+    the rendezvous server's `/metrics` route serves job-wide."""
+    from horovod_tpu_torch.core import topology
+    from horovod_tpu_torch.observability import metrics as m
+    return m.registry().render(topology.rank_or_none())
 
 
 def perfscope():

@@ -30,8 +30,10 @@ the commit (leaving a marker-less dir that the stale sweep later
 quarantines) if a fragment does not arrive within
 HOROVOD_CKPT_COMMIT_TIMEOUT.
 
-Not ported here: the JAX package's checkpoint metrics counters and
-gauges and its flight-recorder events (ROADMAP A13).
+Every save, skip, persist, commit and error is counted in the metrics
+registry (`horovod_ckpt_*`, the JAX package's families) and recorded
+as a flight-recorder `ckpt` event tagged with the rank and round
+(observability/); ckpt/resume.py counts the restores and quarantines.
 """
 
 from __future__ import annotations
@@ -76,6 +78,59 @@ def kv_from_env() -> Optional[Any]:
                         request_timeout=2.0)
     except Exception:
         return None
+
+
+_mx_cache = None
+
+
+def _mx():
+    global _mx_cache
+    from horovod_tpu_torch.observability import metrics as m
+    reg = m.registry()
+    if _mx_cache is None or _mx_cache[0] is not reg:
+        _mx_cache = (reg, {
+            "saves": reg.counter("horovod_ckpt_saves_total",
+                                 "Checkpoint saves accepted (snapshot "
+                                 "taken and enqueued)"),
+            "skipped": reg.counter(
+                "horovod_ckpt_skipped_total",
+                "Checkpoint saves dropped by back-pressure (writer "
+                "queue full; freshness lost, step time preserved)"),
+            "commits": reg.counter("horovod_ckpt_commits_total",
+                                   "Checkpoint generations committed"),
+            "errors": reg.counter("horovod_ckpt_errors_total",
+                                  "Background persist/commit failures"),
+            "restores": reg.counter("horovod_ckpt_restores_total",
+                                    "Checkpoint restores completed"),
+            "quarantined": reg.counter(
+                "horovod_ckpt_quarantined_total",
+                "Corrupt/partial checkpoint dirs quarantined"),
+            "bytes": reg.counter("horovod_ckpt_bytes_total",
+                                 "Checkpoint payload bytes written"),
+            "phase": reg.gauge(
+                "horovod_ckpt_phase_seconds",
+                "Last save's wall seconds split by phase "
+                "(snapshot = critical path, persist/commit = "
+                "background)", labelnames=("phase",)),
+            "save_hist": reg.histogram(
+                "horovod_ckpt_save_seconds",
+                "Save phase durations (labeled by phase)",
+                labelnames=("phase",)),
+            "generation": reg.gauge(
+                "horovod_ckpt_generation",
+                "Newest committed checkpoint generation"),
+            "restore_s": reg.gauge("horovod_ckpt_restore_seconds",
+                                   "Last restore wall seconds"),
+        })
+    return _mx_cache[1]
+
+
+def flight_event(desc: str) -> None:
+    """A flight `ckpt` event, tagged with this process's rank and round
+    (generic flight events carry no rank)."""
+    from horovod_tpu_torch.observability import flight
+    f = ident_fields()
+    flight.record("ckpt", f"{desc} rank={f['rank']} round={f['round']}")
 
 
 def _rank() -> Optional[int]:
@@ -229,17 +284,24 @@ class AsyncCheckpointer:
         if not self._is_writer():
             return False
         with self._lock:
-            if self._inflight >= self._q.maxsize:
+            skip = self._inflight >= self._q.maxsize
+            if skip:
                 # never >queue_depth in flight: skip-and-count
                 self.skipped += 1
-                return False
-            self._inflight += 1
-            # claim the generation in the same critical section as the
-            # slot: two in-flight saves never share a number (a failed
-            # save leaves a harmless gap: monotonicity is the invariant,
-            # not density)
-            self._gen += 1
-            gen = self._gen
+                skip_count = self.skipped
+            else:
+                self._inflight += 1
+                # claim the generation in the same critical section as
+                # the slot: two in-flight saves never share a number (a
+                # failed save leaves a harmless gap: monotonicity is the
+                # invariant, not density)
+                self._gen += 1
+                gen = self._gen
+        if skip:
+            _mx()["skipped"].inc()
+            flight_event(f"skip step={int(step)} skipped={skip_count} "
+                    f"(writer busy)")
+            return False
         try:
             scope = self._scope
             if scope is None:
@@ -253,6 +315,11 @@ class AsyncCheckpointer:
             dt = time.perf_counter() - t0
             with self._lock:
                 self.last_phase_seconds["snapshot"] = dt
+            _mx()["saves"].inc()
+            _mx()["phase"].labels(phase="snapshot").set(dt)
+            _mx()["save_hist"].labels(phase="snapshot").observe(dt)
+            flight_event(f"snapshot step={int(step)} gen={gen} "
+                    f"bytes={nbytes} seconds={dt:.3f}")
             job = _Job(int(step), gen, snaps, nbytes, obj_copy, dt)
             with self._lock:
                 self.history.append({"step": int(step), "generation": gen,
@@ -315,8 +382,11 @@ class AsyncCheckpointer:
             try:
                 self._persist(job)
             except Exception as e:  # never kill training: record it
+                _mx()["errors"].inc()
                 with self._lock:
                     self._last_error = f"{type(e).__name__}: {e}"
+                flight_event(f"persist-error step={job.step} gen="
+                        f"{job.generation} err={type(e).__name__}: {e}")
             finally:
                 # drop the job before the next wait: its snapshot holds
                 # the pinned host copies
@@ -333,9 +403,14 @@ class AsyncCheckpointer:
             with open(os.path.join(dirpath, mf.OBJECTS_NAME), "wb") as f:
                 pickle.dump(job.objects, f)
         persist_s = time.perf_counter() - t0
+        _mx()["bytes"].inc(written)
+        _mx()["phase"].labels(phase="persist").set(persist_s)
+        _mx()["save_hist"].labels(phase="persist").observe(persist_s)
         with self._lock:
             self.last_phase_seconds["persist"] = persist_s
             self._record(job.generation, persist_s=persist_s)
+        flight_event(f"persist step={job.step} gen={job.generation} "
+                f"bytes={written} seconds={persist_s:.3f}")
         entries = [s.entry for s in job.snaps]
         if self.writers > 1 and not self._is_primary():
             # Fragments are keyed by STEP, the id every rank agreed on at
@@ -348,6 +423,10 @@ class AsyncCheckpointer:
         if self.writers > 1:
             peers = self._collect_fragments(job.step)
             if peers is None:
+                flight_event(f"commit-abort step={job.step} "
+                        f"gen={job.generation} (missing writer "
+                        f"fragments after {self.commit_timeout:.0f}s)")
+                _mx()["errors"].inc()
                 with self._lock:
                     self._last_error = (
                         f"commit of step {job.step} aborted: writer "
@@ -360,6 +439,10 @@ class AsyncCheckpointer:
             # A marker over a checkpoint that can never restore would be
             # found only at the preemption that needed it: fail at save
             # time instead (the single-writer-on-a-sharded-job mistake).
+            flight_event(f"commit-abort step={job.step} gen={job.generation} "
+                    f"(leaf {gap[0]!r} covers only {gap[1]}/{gap[2]} "
+                    f"elements)")
+            _mx()["errors"].inc()
             with self._lock:
                 self._last_error = (
                     f"incomplete shard coverage for {gap[0]!r} "
@@ -374,6 +457,11 @@ class AsyncCheckpointer:
         mf.write_manifest(dirpath, man)
         mf.write_marker(self.root, job.step, job.generation)
         commit_s = time.perf_counter() - t1
+        _mx()["commits"].inc()
+        _mx()["generation"].set(job.generation)
+        _mx()["phase"].labels(phase="commit").set(commit_s)
+        _mx()["save_hist"].labels(phase="commit").observe(commit_s)
+        flight_event(f"commit step={job.step} gen={job.generation}")
         with self._lock:
             self._last_committed = (job.generation, job.step)
             self.last_phase_seconds["commit"] = commit_s

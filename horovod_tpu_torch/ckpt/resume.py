@@ -14,8 +14,8 @@ can take long, while its peers already wait in the round's first
 collective. While restoring, the rank heartbeats a ``ckpt/restoring``
 KV key; ``peer_restore_active()`` says whether the signal is fresh,
 and ``grace_max_seconds()`` bounds the grace a stall watchdog may grant
-on it. The watchdog that reads them is ROADMAP A13's; the elastic
-launcher clears the key at every round publication
+on it. The collectives' stall watchdog (ops/collectives.py) re-arms its
+deadline on them; the elastic launcher clears the key at every round publication
 (elastic/driver.py RoundPublisher).
 
 Knobs: HOROVOD_CKPT_RESTORE_HEARTBEAT (seconds between beats, default
@@ -94,8 +94,14 @@ def restore_latest(root: str, like: Optional[Any] = None,
                    kv: Optional[Any] = None) -> Optional[Restored]:
     """Newest committed checkpoint under `root`, with quarantine
     fallback; None when none survives. The disk read runs under the
-    restore signal."""
-    mf.sweep_stale(root)
+    restore signal. Restores and quarantines are counted and recorded
+    in the flight recorder (ckpt/async_ckpt.py)."""
+    import time
+    from horovod_tpu_torch.ckpt.async_ckpt import _mx, flight_event
+    for step in mf.sweep_stale(root):
+        _mx()["quarantined"].inc()
+        flight_event(f"quarantine step={step} reason=stale-uncommitted")
+    t0 = time.perf_counter()
     with signal_restore(kv=kv):
         for gen, step in reversed(mf.committed(root)):
             dirpath = os.path.join(root, mf.dirname_for(step))
@@ -110,9 +116,17 @@ def restore_latest(root: str, like: Optional[Any] = None,
             except (CheckpointCorruptError, OSError,
                     pickle.UnpicklingError, EOFError) as e:
                 mf.quarantine(root, step, f"restore failed: {e}")
+                _mx()["quarantined"].inc()
+                flight_event(f"quarantine step={step} gen={gen} "
+                             f"reason={type(e).__name__}")
                 continue
             if mesh is not None and specs is not None:
                 tree = sharded.reshard(tree, mesh, specs)
+            dt = time.perf_counter() - t0
+            _mx()["restores"].inc()
+            _mx()["restore_s"].set(dt)
+            flight_event(f"restore step={step} gen={gen} "
+                         f"source=checkpoint seconds={dt:.3f}")
             return Restored(step=step, generation=gen, tree=tree,
                             objects=objects)
     return None

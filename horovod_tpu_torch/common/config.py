@@ -7,6 +7,9 @@ collective timeout, the collectives' modes
 HOROVOD_TPU_MESH_SHAPE, Adasum's vector halving, dynamic process sets),
 the two online tuners (HOROVOD_AUTOTUNE*, HOROVOD_BUCKET_AUTOTUNE*;
 core/autotune.py), the timeline and the profilers' knobs (profiler/),
+the observability and control-plane knobs (metrics, the stall
+watchdog, the consistency check, the fingerprint verifier, the native
+KV server the launcher starts),
 and every knob the launcher writes (`runner/launch.py args_to_env`) or
 reads to place and join the workers (rank, size, local and cross
 topology, rendezvous, controller, the MPI rank indirection). The knob
@@ -63,6 +66,23 @@ HOROVOD_BUCKET_AUTOTUNE_MAX_ADJUSTMENTS = \
 HOROVOD_TPU_MESH_SHAPE = "HOROVOD_TPU_MESH_SHAPE"
 # The named-axis mesh ("dp=2,sp=2"; parallel/mesh.py); empty = pure dp.
 HOROVOD_MESH = "HOROVOD_MESH"
+# Observability (observability/): the metrics registry (on unless "0"),
+# its JSON dump, and its label bound.
+HOROVOD_METRICS = "HOROVOD_METRICS"
+HOROVOD_METRICS_DUMP = "HOROVOD_METRICS_DUMP"
+HOROVOD_METRICS_DUMP_INTERVAL = "HOROVOD_METRICS_DUMP_INTERVAL"
+HOROVOD_METRICS_LABEL_MAX = "HOROVOD_METRICS_LABEL_MAX"
+# Cross-rank call agreement (core/consistency.py) and the rolling
+# fingerprint verifier (analysis/verifier.py).
+HOROVOD_CONSISTENCY_CHECK = "HOROVOD_CONSISTENCY_CHECK"
+HOROVOD_CONSISTENCY_TIMEOUT = "HOROVOD_CONSISTENCY_TIMEOUT"
+HOROVOD_CHECK_COLLECTIVES = "HOROVOD_CHECK_COLLECTIVES"
+HOROVOD_CHECK_COLLECTIVES_INTERVAL = "HOROVOD_CHECK_COLLECTIVES_INTERVAL"
+HOROVOD_CHECK_COLLECTIVES_WINDOW = "HOROVOD_CHECK_COLLECTIVES_WINDOW"
+HOROVOD_CHECK_COLLECTIVES_TIMEOUT = "HOROVOD_CHECK_COLLECTIVES_TIMEOUT"
+# The native KV/coordination server the launcher starts (native/).
+HOROVOD_NATIVE_KV_ADDR = "HOROVOD_NATIVE_KV_ADDR"
+HOROVOD_NATIVE_KV_PORT = "HOROVOD_NATIVE_KV_PORT"
 
 # Launcher-injected topology and rendezvous (runner/launch.py).
 HOROVOD_RANK = "HOROVOD_RANK"
@@ -89,6 +109,7 @@ DEFAULT_FUSION_THRESHOLD_BYTES = 4 * 1024 * 1024
 DEFAULT_BUCKET_CAP_BYTES = 4 * 1024 * 1024
 DEFAULT_CACHE_CAPACITY = 1024
 DEFAULT_ELASTIC_TIMEOUT_SECONDS = 600.0
+DEFAULT_STALL_WARNING_SECONDS = 60.0
 # In elastic mode a collective that has not completed after this many
 # seconds raises (the process group's timeout) where
 # HOROVOD_STALL_SHUTDOWN_TIME_SECONDS does not set it: a dead peer under
@@ -152,8 +173,7 @@ def _env_or_mpi(primary: str, indirect: str) -> Optional[int]:
 class Config:
     """Snapshot of the knobs the port reads, taken at init(). Of the
     others above, the launcher writes the log knobs, which
-    common/hvd_logging.py reads, and the knobs of subsystems not ported
-    yet, whose flags it refuses."""
+    common/hvd_logging.py reads."""
 
     fusion_threshold_bytes: int = DEFAULT_FUSION_THRESHOLD_BYTES
     bucket_cap_bytes: int = DEFAULT_BUCKET_CAP_BYTES
@@ -184,6 +204,21 @@ class Config:
     # timeout there (0: DEFAULT_ELASTIC_COLLECTIVE_TIMEOUT_SECONDS).
     elastic: bool = False
     stall_shutdown_seconds: float = 0.0
+    # The stall inspector and the collective watchdog (ops/collectives.py).
+    stall_check_disable: bool = False
+    stall_warning_seconds: float = DEFAULT_STALL_WARNING_SECONDS
+    # Observability (observability/metrics.py, export.py).
+    metrics_enabled: bool = True
+    metrics_dump: str = ""
+    metrics_dump_interval: float = 30.0
+    metrics_push_interval: float = 5.0
+    # Call agreement: on by default where the launcher started the native
+    # KV server (a launched job); the checker turns itself off at size 1.
+    consistency_check: bool = False
+    check_collectives: bool = False
+    check_collectives_interval: int = 10
+    check_collectives_window: int = 512
+    check_collectives_timeout: float = 5.0
 
     # Topology (launcher-injected); None where the env does not say.
     rank: Optional[int] = None
@@ -233,6 +268,26 @@ class Config:
             elastic=_env_bool(HOROVOD_ELASTIC),
             stall_shutdown_seconds=_env_float(
                 HOROVOD_STALL_SHUTDOWN_TIME_SECONDS, 0.0),
+            stall_check_disable=_env_bool(HOROVOD_STALL_CHECK_DISABLE),
+            stall_warning_seconds=_env_float(
+                HOROVOD_STALL_CHECK_TIME_SECONDS,
+                DEFAULT_STALL_WARNING_SECONDS),
+            metrics_enabled=_env_bool(HOROVOD_METRICS, True),
+            metrics_dump=os.environ.get(HOROVOD_METRICS_DUMP, ""),
+            metrics_dump_interval=_env_float(
+                HOROVOD_METRICS_DUMP_INTERVAL, 30.0),
+            metrics_push_interval=_env_float(
+                HOROVOD_METRICS_PUSH_INTERVAL, 5.0),
+            consistency_check=_env_bool(
+                HOROVOD_CONSISTENCY_CHECK,
+                default=bool(os.environ.get(HOROVOD_NATIVE_KV_ADDR))),
+            check_collectives=_env_bool(HOROVOD_CHECK_COLLECTIVES),
+            check_collectives_interval=_env_int(
+                HOROVOD_CHECK_COLLECTIVES_INTERVAL, 10),
+            check_collectives_window=_env_int(
+                HOROVOD_CHECK_COLLECTIVES_WINDOW, 512),
+            check_collectives_timeout=_env_float(
+                HOROVOD_CHECK_COLLECTIVES_TIMEOUT, 5.0),
             rank=_env_or_mpi(HOROVOD_RANK, HOROVOD_MPI_RANK_ENV),
             size=_opt_int(HOROVOD_SIZE),
             local_rank=_env_or_mpi(HOROVOD_LOCAL_RANK,

@@ -64,6 +64,37 @@ class TensorShapeMismatchError(HorovodError):
     """Ranks submitted mismatched shapes for the same collective."""
 
 
+class VersionMismatchError(HorovodError):
+    """Ranks, or a rank and its launcher, run different versions of the
+    package or of its control-plane protocol (core/consistency.py's
+    handshake at init)."""
+
+
+class CollectiveDivergenceError(HorovodError):
+    """Ranks issued different collective sequences: caught by the
+    fingerprint verifier (HOROVOD_CHECK_COLLECTIVES, analysis/
+    verifier.py) or by the consistency check. Not a HorovodInternalError:
+    the elastic retry loop must not restart a program that diverges
+    deterministically; it would diverge again every round."""
+
+
+class CollectiveMismatchError(TensorShapeMismatchError,
+                              CollectiveDivergenceError):
+    """The consistency check (core/consistency.py) found ranks disagreeing
+    on one collective: a TensorShapeMismatchError as in the JAX package,
+    and a CollectiveDivergenceError naming the divergent call."""
+
+
+class StalledTensorError(HorovodError):
+    """The stall inspector forced a shutdown."""
+
+
+class FaultInjectedError(HorovodError):
+    """An error produced by the seeded fault-injection harness
+    (testing/faults.py) for kinds with no natural exception type (a
+    discovery flap). Never raised unless HOROVOD_FAULT_SPEC is set."""
+
+
 class DuplicateNameError(HorovodError):
     """Two in-flight collectives share a name: an async handle holds its
     name until it is synchronized."""

@@ -24,8 +24,11 @@ re-plans its buckets between steps when the threshold moves.
 
 The ParameterManager marks each sample boundary on the timeline
 (`mark_cycle`, drawn under HOROVOD_TIMELINE_MARK_CYCLES), as the JAX
-package's does. Left out: the JAX tuners' metrics (ROADMAP A13), the
-cache-capacity knob (see `default_knobs`), and OnlineLayoutTuner,
+package's does, and both tuners feed the metrics registry as the JAX
+package's do (`horovod_autotune_*`: samples, sample seconds, score,
+the knobs applied, frozen; `horovod_bucket_autotune_*`: the threshold,
+the adjustments, frozen), with a flight record for each threshold the
+bucket tuner moves. Left out: the cache-capacity knob (see `default_knobs`), and OnlineLayoutTuner,
 which tunes the layout pass (A7).
 """
 
@@ -287,6 +290,7 @@ class ParameterManager:
         if tl is not None:
             tl.mark_cycle()
         score = s.bytes / max(s.seconds, 1e-12)  # bytes a second
+        self._observe_sample(s, score)
         if self.warmup_remaining > 0:
             self.warmup_remaining -= 1
             self._current = _Sample(x=s.x)
@@ -304,6 +308,33 @@ class ParameterManager:
         self._current = _Sample(x=cur_x, skip=1 if changed else 0)
         self._maybe_log()
         return changed
+
+    def _observe_sample(self, s: "_Sample", score: float) -> None:
+        """Sample-boundary telemetry: the sample count and seconds, the
+        throughput, the knobs applied and whether the tuner froze."""
+        try:
+            from horovod_tpu_torch.observability import metrics as m
+            reg = m.registry()
+            if not reg.enabled:
+                return
+            reg.counter("horovod_autotune_samples_total",
+                        "Autotune sample windows completed").inc()
+            reg.histogram("horovod_autotune_sample_seconds",
+                          "Accumulated reduction time per sample window",
+                          buckets=m.TIME_BUCKETS).observe(s.seconds)
+            reg.gauge("horovod_autotune_score_bytes_per_sec",
+                      "Last sample window's reduction throughput"
+                      ).set(score)
+            reg.gauge("horovod_autotune_frozen",
+                      "1 once the tuner froze its final choice"
+                      ).set(1.0 if self._frozen else 0.0)
+            chosen = reg.gauge("horovod_autotune_param",
+                               "Currently applied tunable values",
+                               labelnames=("param",))
+            for k in self.knobs:
+                chosen.labels(param=k.name).set(float(k.get(self.cfg)))
+        except Exception:
+            pass  # telemetry never breaks the tuner
 
     def _decide(self, x: np.ndarray, score: float):
         """One decision on the deciding rank; returns (new_x, frozen).
@@ -490,4 +521,30 @@ class OnlineBucketTuner:
             self._frozen = True
         self.decisions.append((self._calls, None if new_t is None
                                else int(new_t), bool(freeze)))
+        self._observe(changed)
         return changed
+
+    def _observe(self, changed: bool) -> None:
+        try:
+            from horovod_tpu_torch.observability import flight
+            from horovod_tpu_torch.observability import metrics as m
+            reg = m.registry()
+            if reg.enabled:
+                reg.gauge("horovod_bucket_autotune_threshold_bytes",
+                          "Fusion threshold currently applied by the "
+                          "online bucket tuner").set(
+                              float(self.cfg.fusion_threshold_bytes))
+                reg.gauge("horovod_bucket_autotune_adjustments",
+                          "Threshold changes applied by the online "
+                          "bucket tuner").set(float(self.adjustments))
+                reg.gauge("horovod_bucket_autotune_frozen",
+                          "1 once the online bucket tuner froze").set(
+                              1.0 if self._frozen else 0.0)
+            if changed:
+                flight.record(
+                    "autotune", f"bucket tuner moved fusion threshold to "
+                    f"{self.cfg.fusion_threshold_bytes} bytes "
+                    f"(adjustment {self.adjustments}/"
+                    f"{self.max_adjustments})")
+        except Exception:
+            pass  # telemetry never breaks the tuner

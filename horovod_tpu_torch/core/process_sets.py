@@ -114,8 +114,10 @@ class ProcessSetTable:
                 # all: an NCCL communicator must start so before a
                 # point-to-point exchange between some of them (Adasum).
                 from horovod_tpu_torch.core import topology
-                dist.all_reduce(torch.zeros(1, device=topology.device()),
-                                group=ps.group, async_op=True).wait()
+                from horovod_tpu_torch.ops.collectives import guarded_wait
+                guarded_wait(dist.all_reduce(
+                    torch.zeros(1, device=topology.device()),
+                    group=ps.group, async_op=True), "process_set_register")
             return sid
 
     def remove(self, ps: ProcessSet) -> None:

@@ -62,6 +62,22 @@ destroying them, which can hang on a broken one, and `reinit()` joins
 again with the arguments of the last init. The global process set is
 rebuilt at every init; sets registered at init or after are not.
 
+The runtime control plane starts at init, as in the JAX package: the
+stall inspector (native/ StallInspector, or PyStallInspector without a
+toolchain; off under HOROVOD_STALL_CHECK_DISABLE) with its watcher
+thread, which warns about collectives pending past
+HOROVOD_STALL_CHECK_TIME_SECONDS (ops/collectives.py bounds the waits
+themselves); the consistency checker (core/consistency.py) where
+HOROVOD_CONSISTENCY_CHECK is on, by default in a launched job, which
+injects the native KV server; the fingerprint verifier
+(analysis/verifier.py) under HOROVOD_CHECK_COLLECTIVES; and the metrics
+exporter thread (observability/export.py). Outside elastic mode, with
+HOROVOD_STALL_SHUTDOWN_TIME_SECONDS > 0, the process group's timeout is
+set past that window (twice it, plus 5 s), so that a gloo operation the
+watchdog gave up on ends on its own. shutdown stops each of them;
+`mark_aborted` records a world the watchdog aborted, whose collectives
+then raise until the next init.
+
 With HOROVOD_TIMELINE set, init starts the Chrome-trace timeline
 (profiler/timeline.py) on rank 0, as the JAX package does: co-hosted
 ranks sharing the path would overwrite each other's file, and
@@ -109,6 +125,10 @@ class _State:
     timeline: object = None  # profiler/timeline.Timeline while one runs
     mesh_spec: object = None  # parallel/mesh.MeshSpec under HOROVOD_MESH
     hybrid_mesh: object = None  # parallel/mesh.Mesh under HOROVOD_MESH
+    stall_inspector: object = None  # native or Python StallInspector
+    stall_stop: object = None  # threading.Event ending the watcher
+    stall_thread: object = None  # the watcher thread
+    aborted: str = ""  # why the watchdog aborted the world, if it did
 
 
 @dataclasses.dataclass(frozen=True)
@@ -327,6 +347,9 @@ def init(device: Optional[str] = None,
         pg_kw = {}
         if cfg.elastic:
             pg_kw["timeout"] = _elastic_timeout(cfg)
+        elif cfg.stall_shutdown_seconds > 0 and not cfg.stall_check_disable:
+            pg_kw["timeout"] = datetime.timedelta(
+                seconds=2 * cfg.stall_shutdown_seconds + 5)
         if init_method is None:
             if cfg.elastic and cfg.coordinator_addr:
                 store = _round_store(cfg.coordinator_addr, size,
@@ -385,6 +408,7 @@ def init(device: Optional[str] = None,
             _state.hybrid_mesh = mesh_mod.build_mesh(spec)
         for ps in process_sets or ():
             _state.process_set_table.register(ps)
+        _start_control_plane(cfg, rank, size)
         if cfg.timeline_path and rank == 0 and _state.timeline is None:
             from horovod_tpu_torch.profiler.timeline import Timeline
             tl = Timeline(cfg.timeline_path,
@@ -407,11 +431,14 @@ def shutdown(abort: bool = False) -> None:
             return
         from horovod_tpu_torch.profiler import perfscope
         perfscope.push_summary()  # while the rank still keys it
+        _stop_control_plane()
         if _state.timeline is not None:
             _state.timeline.stop()
         _state.process_set_table.clear()
         c10d = dist.distributed_c10d
-        if abort and dist.get_backend() == "nccl" and \
+        if not dist.is_initialized():
+            pass  # the watchdog aborted an NCCL world already
+        elif abort and dist.get_backend() == "nccl" and \
                 hasattr(c10d, "_abort_process_group"):
             c10d._abort_process_group()
         else:
@@ -419,6 +446,129 @@ def shutdown(abort: bool = False) -> None:
         if _state.store_file and os.path.exists(_state.store_file):
             os.unlink(_state.store_file)
         _state.__init__()
+
+
+def _start_control_plane(cfg: C.Config, rank: int, size: int) -> None:
+    """The consistency checker, the verifier, the stall inspector and its
+    watcher, and the metrics exporter (module docstring); telemetry never
+    fails init, the checker's version handshake does."""
+    from horovod_tpu_torch.common.hvd_logging import get_logger
+    if cfg.consistency_check:
+        from horovod_tpu_torch.core import consistency
+        consistency.maybe_init(cfg, rank, size)
+    if cfg.check_collectives:
+        from horovod_tpu_torch.analysis import verifier
+        verifier.maybe_init(cfg, rank, size)
+    if not cfg.stall_check_disable:
+        from horovod_tpu_torch import native
+        si = None
+        if native.available():
+            try:
+                si = native.NativeStallInspector(
+                    cfg.stall_warning_seconds, cfg.stall_shutdown_seconds)
+            except Exception:
+                si = None
+        if si is None:
+            from horovod_tpu_torch.common.resilience import PyStallInspector
+            si = PyStallInspector(cfg.stall_warning_seconds,
+                                  cfg.stall_shutdown_seconds)
+        _state.stall_inspector = si
+        _state.stall_stop = threading.Event()
+        _state.stall_thread = threading.Thread(
+            target=_stall_watch, args=(si, cfg, _state.stall_stop),
+            name="hvd-stall-watch", daemon=True)
+        _state.stall_thread.start()
+    try:
+        from horovod_tpu_torch.observability import export
+        export.start_exporter(cfg)
+    except Exception as e:
+        get_logger().warning("metrics exporter not started: %s", e)
+
+
+def _stall_watch(si, cfg: C.Config, stop: threading.Event) -> None:
+    """Warn about collectives pending past the warning window, naming the
+    ranks the consistency checker has not seen and the verifier's last
+    agreed call (the JAX package's watcher; the waits themselves are
+    bounded by ops/collectives.py StallWatchdog)."""
+    from horovod_tpu_torch.common.hvd_logging import get_logger
+    while not stop.wait(max(cfg.stall_warning_seconds / 2.0, 1.0)):
+        stalled, _ = si.check()
+        if not stalled:
+            continue
+        who = ""
+        try:
+            from horovod_tpu_torch.core import consistency
+            checker = consistency.get()
+            lag = checker.lagging_ranks() if checker is not None else []
+            if lag:
+                who = f"; rank(s) {lag} have not arrived"
+            from horovod_tpu_torch.analysis import verifier
+            who += verifier.stall_context()
+            from horovod_tpu_torch.observability import flight, metrics
+            metrics.registry().counter(
+                "horovod_stall_warnings_total", "Stall warnings",
+                labelnames=("source",)).labels(source="watcher").inc()
+            flight.record("stall", f"watcher: collective(s) "
+                          f"{', '.join(stalled)} stalled over "
+                          f"{cfg.stall_warning_seconds:.0f}s{who}")
+        except Exception:
+            pass
+        get_logger().warning(
+            "One or more collectives stalled for over %.0fs: %s; some "
+            "ranks may not have reached them%s "
+            "(HOROVOD_STALL_CHECK_TIME_SECONDS)",
+            cfg.stall_warning_seconds, ", ".join(stalled), who)
+
+
+def _stop_control_plane() -> None:
+    try:  # the final metrics flush, while the rank still keys it
+        from horovod_tpu_torch.observability import export
+        export.stop_exporter()
+    except Exception:
+        pass
+    if _state.stall_stop is not None:
+        _state.stall_stop.set()
+        _state.stall_thread.join(timeout=5.0)
+    from horovod_tpu_torch.analysis import verifier
+    from horovod_tpu_torch.core import consistency
+    consistency.reset()
+    verifier.reset()
+
+
+def control_plane() -> dict:
+    """What of the runtime control plane is live in this world: the
+    native KV server the consistency check agrees through, the checker,
+    the verifier, the stall windows, and the metrics, flight and trace
+    gates."""
+    st = _require()
+    cfg = st.config
+    from horovod_tpu_torch import native
+    from horovod_tpu_torch.analysis import verifier
+    from horovod_tpu_torch.core import consistency
+    from horovod_tpu_torch.observability import flight, metrics, tracing
+    addr = os.environ.get(C.HOROVOD_NATIVE_KV_ADDR, "")
+    port = os.environ.get(C.HOROVOD_NATIVE_KV_PORT, "")
+    return {
+        "native": native.active_path(),
+        "native_kv": f"{addr}:{port}" if addr and port else None,
+        "consistency_check": consistency.get() is not None,
+        "check_collectives": verifier.get() is not None,
+        "stall_check": None if st.stall_inspector is None else
+        {"warning_s": cfg.stall_warning_seconds,
+         "shutdown_s": cfg.stall_shutdown_seconds},
+        "metrics": metrics.enabled(), "flight": flight.enabled(),
+        "trace": tracing.get() is not tracing.NOOP}
+
+
+def mark_aborted(reason: str) -> None:
+    """Record that the stall watchdog aborted the world: collectives
+    raise until shutdown and the next init."""
+    _state.aborted = reason or "aborted"
+
+
+def raw_state() -> _State:
+    """The state as it is, initialized or not (observability reads it)."""
+    return _state
 
 
 def reinit() -> None:

@@ -178,7 +178,9 @@ class DeviceFeed:
     feed parks its starvation there, a prefetched one ~0. ``depth=0``
     pulls and stages inline, all of it inside ``input_wait``. A
     source's exception is raised to the consumer, after the batches
-    staged before it.
+    staged before it. Each produced batch passes the
+    ``data.feed.produce`` fault-injection site (testing/faults.py: a
+    latency rule there is a slow preprocessing tier).
     """
 
     _SENTINEL = object()
@@ -249,12 +251,14 @@ class DeviceFeed:
         return out, ev
 
     def _produce(self) -> None:
+        from horovod_tpu_torch.testing import faults
         if self.device.type == "cuda":
             torch.cuda.set_device(self.device)
         try:
             for batch in self.source:
                 if self._stop.is_set():
                     return
+                faults.inject("data.feed.produce")
                 if not self._bounded_put(self._stage(batch)):
                     return
         except BaseException as e:  # raised on the consumer's side
@@ -297,8 +301,11 @@ class DeviceFeed:
 
     def __next__(self):
         if self.depth <= 0:
+            from horovod_tpu_torch.testing import faults
             with self._perfscope().phase("input_wait"):
-                item = self._stage(next(self.source))
+                batch = next(self.source)
+                faults.inject("data.feed.produce")
+                item = self._stage(batch)
             return self._ready(*item)
         with self._perfscope().phase("input_wait"):
             # Poll, not a bare get(): close() drains the queue and the

@@ -58,8 +58,11 @@ def _reset(state: State) -> None:
     exits cleanly. With no launcher (no notifier) the reset is a leave
     and a join in the same process."""
     from horovod_tpu_torch.core import topology
+    from horovod_tpu_torch.observability import flight
     from horovod_tpu_torch.ops import collectives
 
+    flight.record("elastic", "reset: detaching state and leaving the "
+                  "current world")
     state.to_host()
     notifier = worker_mod.get_notifier()
     topology.shutdown(abort=True)
@@ -88,12 +91,17 @@ def _reset(state: State) -> None:
             os.environ[C.HOROVOD_COORDINATOR_ADDR] = assignment["coord"]
         os.environ[C.HOROVOD_ELASTIC_ROUND] = str(new_round)
         notifier.advance(new_round)
+        flight.set_round(new_round, assignment["rank"])
         # Ranks are reassigned across rounds and the next KV push keys by
         # the NEW (rank, round): drop the old round's perfscope window.
         from horovod_tpu_torch.profiler import perfscope
         perfscope.get().reset()
+        flight.record("elastic",
+                      f"adopted round {new_round}: rank="
+                      f"{assignment['rank']} size={assignment['size']}")
 
     topology.reinit()
+    flight.record("elastic", "re-initialized after reset")
 
 
 def run(func: Callable) -> Callable:
@@ -114,10 +122,20 @@ def run(func: Callable) -> Callable:
                 result = func(state, *args, **kwargs)
                 worker_mod.stop_notifier()
                 return result
-            except HorovodInternalError:
+            except HorovodInternalError as e:
+                # Dump before recovery tears the evidence down, unless
+                # the raising site (the stall watchdog) just dumped with
+                # its own trigger.
+                from horovod_tpu_torch.observability import flight
+                flight.record("elastic", f"HorovodInternalError; "
+                              f"restoring last commit: {e}")
+                flight.dump_if_stale("internal_error")
                 state.restore()
                 skip_sync = False
             except HostsUpdatedInterrupt as e:
+                from horovod_tpu_torch.observability import flight
+                flight.record("elastic", "HostsUpdatedInterrupt: host "
+                              "set changed; resetting")
                 skip_sync = bool(getattr(e, "skip_sync", False))
             _reset(state)
             state.on_reset()

@@ -116,9 +116,11 @@ class HostManager:
 
         May raise (discovery script failure): callers own the retry —
         ElasticDriver._discover_loop backs off under its RetryPolicy,
-        wait_for_available_slots absorbs until its timeout. (The JAX
-        package's fault-injection site here comes with ROADMAP A13.)
+        wait_for_available_slots absorbs until its timeout. The poll is
+        the `discovery.poll` fault-injection site (testing/faults.py).
         """
+        from horovod_tpu_torch.testing import faults
+        faults.inject("discovery.poll")
         found = self._discovery.find_available_hosts_and_slots()
         usable = {h: s for h, s in found.items()
                   if not self._blacklist.is_blacklisted(h)}

@@ -14,9 +14,13 @@ launcher hosts each round's TCPStore (RoundPublisher), so the death of
 any worker, rank 0 included, leaves the store the survivors meet
 through.
 
-Not ported here: the driver's metrics counters and flight-recorder
-events, and the job-end persistence of flight tails, watch records and
-tracing spans (ROADMAP A13); the perfscope summaries are persisted.
+The driver counts its rounds, resets, spawns, failures, blacklists and
+discovery failures into the launcher's metrics registry (served by the
+rendezvous server's `GET /metrics`), records its rounds and worker exits
+in the flight recorder, and at the job's end persists the workers'
+flight tails, perfscope summaries and trace spans into
+HOROVOD_FLIGHT_DIR (runner/launch.py persist_job_records; the hvdwatch
+records come with ROADMAP A13 part 2).
 """
 
 from __future__ import annotations
@@ -34,8 +38,39 @@ from horovod_tpu_torch.common.resilience import (RetryPolicy,
                                                  discovery_retry_policy)
 from horovod_tpu_torch.elastic.discovery import HostManager
 from horovod_tpu_torch.elastic.registration import WorkerStateRegistry
+from horovod_tpu_torch.observability import flight
 from horovod_tpu_torch.runner.hosts import (HostInfo, SlotInfo,
                                             get_host_assignments)
+
+_mx_cache = None
+
+
+def _mx():
+    """Launcher-side elastic telemetry (observability/metrics.py)."""
+    global _mx_cache
+    from horovod_tpu_torch.observability import metrics as m
+    reg = m.registry()
+    if _mx_cache is None or _mx_cache[0] is not reg:
+        _mx_cache = (reg, {
+            "rounds": reg.counter("horovod_elastic_rounds_total",
+                                  "Rendezvous rounds started"),
+            "resets": reg.counter("horovod_elastic_resets_total",
+                                  "Host-change resets processed"),
+            "spawned": reg.counter("horovod_elastic_workers_spawned_total",
+                                   "Worker processes spawned"),
+            "failures": reg.counter(
+                "horovod_elastic_worker_failures_total",
+                "Worker exits with non-zero status"),
+            "blacklists": reg.counter(
+                "horovod_elastic_host_blacklists_total",
+                "Hosts blacklisted after a failure"),
+            "disc_fail": reg.counter(
+                "horovod_elastic_discovery_failures_total",
+                "Host-discovery poll failures"),
+            "world": reg.gauge("horovod_elastic_world_size",
+                               "Workers in the current round"),
+        })
+    return _mx_cache[1]
 
 
 @dataclasses.dataclass
@@ -152,6 +187,7 @@ class ElasticDriver:
                 wait = self.discovery_interval
             except Exception as e:
                 self.discovery_failures += 1
+                _mx()["disc_fail"].inc()
                 if backoff is None:
                     backoff = self.discovery_retry.delays()
                 try:
@@ -235,12 +271,17 @@ class ElasticDriver:
             print(f"elastic: round {round_id}: slots="
                   f"{[(s.hostname, s.local_rank, s.rank) for s in slots]} "
                   f"survivors={len(survivors)}", file=sys.stderr)
+            flight.record("elastic",
+                          f"launcher: round {round_id} with "
+                          f"{len(slots)} slot(s), {len(survivors)} "
+                          f"survivor(s)")
             if self.publish_fn is not None:
                 self.publish_fn(slots, round_id)
             self._workers = {}
             self._round_spawned = len(slots)
             self._round_failed = 0
             self._round_succeeded = 0
+            mx = _mx()
             for slot in slots:
                 key = (slot.hostname, slot.local_rank)
                 if key in survivors:
@@ -251,6 +292,9 @@ class ElasticDriver:
                 else:
                     handle = self.spawn_fn(slot, round_id)
                     self._workers[slot.rank] = _Worker(slot, handle, round_id)
+                    mx["spawned"].inc()
+            mx["rounds"].inc()
+            mx["world"].set(len(slots))
 
     def reap_leaving(self) -> None:
         """Drop leaving workers that exited; force-stop stragglers past the
@@ -274,6 +318,9 @@ class ElasticDriver:
             w = self._workers.pop(rank, None)
         if w is None:
             return
+        flight.record("elastic",
+                      f"launcher: worker rank={rank} "
+                      f"({w.slot.hostname}) exited code={exit_code}")
         if exit_code == 0:
             self.registry.record_success(rank)
             with self._lock:
@@ -281,6 +328,7 @@ class ElasticDriver:
                 self.consecutive_failed_rounds = 0
             return
         self.registry.record_failure(rank)
+        _mx()["failures"].inc()
         with self._lock:
             self._round_failed += 1
             if (self._round_succeeded == 0
@@ -288,6 +336,7 @@ class ElasticDriver:
                 self.consecutive_failed_rounds += 1
         if host_failure:
             self.hosts.blacklist(w.slot.hostname)
+            _mx()["blacklists"].inc()
         self._host_change.set()
 
     # ------------------------------------------------------------------ run
@@ -314,6 +363,7 @@ class ElasticDriver:
         with self._lock:
             self._resets += 1
             resets = self._resets
+        _mx()["resets"].inc()
         if self.reset_limit is not None and resets > self.reset_limit:
             raise ResetLimitExceededError(
                 f"elastic reset limit {self.reset_limit} exceeded after "
@@ -473,7 +523,6 @@ def run_elastic(args, command: List[str], extra_env: Dict[str, str]) -> int:
     gloo_run.py:303 launch_gloo_elastic)."""
     from horovod_tpu_torch.common import config as C
     from horovod_tpu_torch.elastic.discovery import HostDiscoveryScript
-    from horovod_tpu_torch.profiler import perfscope
     from horovod_tpu_torch.runner import safe_exec
     from horovod_tpu_torch.runner import secret as secret_mod
     from horovod_tpu_torch.runner.kv_ha import start_control_plane
@@ -528,8 +577,9 @@ def run_elastic(args, command: List[str], extra_env: Dict[str, str]) -> int:
         driver.start(start_timeout=args.start_timeout)
         return drive_elastic_loop(driver, args.elastic_timeout)
     finally:
-        # The workers' perfscope summaries live only in this KV: write
-        # them out before it goes (HOROVOD_FLIGHT_DIR, when set).
-        perfscope.persist_kv_summaries(rdv)
+        # What the workers pushed lives only in this KV: write it out
+        # before it goes (HOROVOD_FLIGHT_DIR, when set).
+        from horovod_tpu_torch.runner.launch import persist_job_records
+        persist_job_records(rdv)
         publisher.close()
         rdv.stop()

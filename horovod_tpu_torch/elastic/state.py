@@ -233,9 +233,13 @@ class CheckpointableState:
         latest = _mf.latest_committed(self._ckpt.root)
         if latest is None:
             return False
-        _, disk_step = latest
-        if disk_step <= int(getattr(self, "step", 0) or 0):
+        gen, disk_step = latest
+        mem_step = int(getattr(self, "step", 0) or 0)
+        if disk_step <= mem_step:
             # a survivor: memory is at least as fresh as disk
+            from horovod_tpu_torch.ckpt.async_ckpt import flight_event
+            flight_event(f"restore step={mem_step} gen={gen} "
+                         f"source=memory")
             self.last_resume_source = "memory"
             return False
         # No `like`: a fresh process may hold no optimizer state yet, and

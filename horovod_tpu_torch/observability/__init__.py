@@ -1,0 +1,23 @@
+"""Observability of the port (counterpart of horovod_tpu/observability/).
+
+`metrics`: the process-local registry (Counter, Gauge, Histogram; a
+no-op shell under HOROVOD_METRICS=0) and Prometheus rendering.
+`export`: the background fan-out (the rendezvous KV push the launcher's
+`/metrics` route serves, JSON dumps, timeline counter tracks).
+`flight`: the always-on flight recorder, dumped on a stall, a
+divergence, a fatal error, SIGUSR1 and exit. `tracing`: spans and trace
+context, a `train.step` root per step. The offline and live tools that
+read their records (doctor, top, watch, perfboard) are ROADMAP A13
+part 2.
+"""
+
+from horovod_tpu_torch.observability.metrics import (  # noqa: F401
+    COUNT_BUCKETS, MetricsRegistry, NOOP, SIZE_BUCKETS, TIME_BUCKETS,
+    enabled, parse_snapshot, registry, render_snapshots, reset_for_tests,
+)
+from horovod_tpu_torch.observability.export import (  # noqa: F401
+    MetricsExporter, start_exporter, stop_exporter,
+)
+from horovod_tpu_torch.observability.flight import (  # noqa: F401
+    FlightRecorder,
+)

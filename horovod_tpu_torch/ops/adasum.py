@@ -53,6 +53,12 @@ def _combine(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return (ca * af + cb * bf).to(a.dtype)
 
 
+def _wait(work) -> None:
+    """Wait under the stall watchdog (ops/collectives.py guarded_wait)."""
+    from horovod_tpu_torch.ops.collectives import guarded_wait
+    guarded_wait(work, "adasum")
+
+
 def _exchange(x: torch.Tensor, peer: int, group) -> torch.Tensor:
     """Send x to global rank `peer` and receive its tensor of x's shape."""
     x = x.contiguous()
@@ -60,21 +66,21 @@ def _exchange(x: torch.Tensor, peer: int, group) -> torch.Tensor:
     ops = [dist.P2POp(dist.isend, x, peer, group=group),
            dist.P2POp(dist.irecv, got, peer, group=group)]
     for w in dist.batch_isend_irecv(ops):
-        w.wait()
+        _wait(w)
     return got
 
 
 def _send(x: torch.Tensor, peer: int, group) -> None:
     for w in dist.batch_isend_irecv(
             [dist.P2POp(dist.isend, x.contiguous(), peer, group=group)]):
-        w.wait()
+        _wait(w)
 
 
 def _recv(like: torch.Tensor, peer: int, group) -> torch.Tensor:
     got = torch.empty_like(like)
     for w in dist.batch_isend_irecv(
             [dist.P2POp(dist.irecv, got, peer, group=group)]):
-        w.wait()
+        _wait(w)
     return got
 
 
@@ -147,7 +153,7 @@ def _vhdd(x: torch.Tensor, ps, p2: int, idx: int) -> torch.Tensor:
             table[idx // (2 * d)] = torch.stack(
                 [_dot(keep, recv), kk if bit == 0 else rr,
                  rr if bit == 0 else kk])
-        dist.all_reduce(table, group=group, async_op=True).wait()
+        _wait(dist.all_reduce(table, group=group, async_op=True))
         if core:
             dot, na, nb = table[idx // (2 * d)]
             ca, cb = _coeffs(dot, na, nb)
@@ -157,8 +163,8 @@ def _vhdd(x: torch.Tensor, ps, p2: int, idx: int) -> torch.Tensor:
         d *= 2
     seg = cur if core else torch.zeros_like(cur)
     rows: List[torch.Tensor] = [torch.empty_like(seg) for _ in range(k)]
-    dist.all_gather(rows, seg.contiguous(), group=group,
-                    async_op=True).wait()
+    _wait(dist.all_gather(rows, seg.contiguous(), group=group,
+                          async_op=True))
     combined = torch.cat([rows[_bitrev(j, levels)] for j in range(p2)])
     return combined[:n].reshape(shape).to(dtype)
 

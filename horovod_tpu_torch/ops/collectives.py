@@ -72,8 +72,43 @@ which covers the blocking collectives, the bucket launches and their
 waits in `DistributedOptimizer.synchronize`. Outside elastic mode the
 error surfaces as it is.
 
-Not ported here: the consistency fingerprints (ROADMAP A13), the
-collectives' metrics and byte counters, and the stall watchdog (A13).
+Observability and call agreement, as in the JAX package:
+- every call passes one dispatch choke point (`dispatch`, the JAX
+  package's `_consistency`) with a descriptor in the JAX package's text
+  (`describe_*`): one flight-recorder record (observability/flight.py),
+  a tracing dispatch marker under the ambient step (observability/
+  tracing.py), the cross-rank agreement of core/consistency.py
+  (HOROVOD_CONSISTENCY_CHECK, on by default in launched worlds of two or
+  more) and the rolling fingerprint of analysis/verifier.py
+  (HOROVOD_CHECK_COLLECTIVES), each scoped to the process set. The hook
+  path of DistributedOptimizer passes it once a step, on the step's
+  bucket plan, as the JAX package's one `bucketed_allreduce` call does;
+- `instrument` counts the calls, the bytes (the set's size times this
+  rank's payload, as the JAX package counts its global arrays) and the
+  host window of each call into the metrics registry
+  (observability/metrics.py), and records a tracing span;
+- every wait on a collective's `Work` goes through `guarded_wait`: the
+  stall inspector (native/ StallInspector, or common/resilience.py
+  PyStallInspector without a toolchain) names it while it is pending,
+  and with HOROVOD_STALL_SHUTDOWN_TIME_SECONDS > 0 the `StallWatchdog`
+  bounds it: it polls `Work.is_completed()` (never a thread left
+  blocked), warns at HOROVOD_STALL_CHECK_TIME_SECONDS, re-arms while a
+  peer's checkpoint restore is live (ckpt/resume.py), and at the
+  shutdown window aborts the world (NCCL: `_abort_process_group`, so no
+  dangling Work poisons a later collective; gloo, whose abort waits for
+  the pending operation, is bounded by the process group's timeout,
+  which init sets past the window), dumps the flight recorder and
+  raises HorovodInternalError naming the collective, with the
+  verifier's `stall_context()`. The JAX package bounds only elastic
+  waits and aborts the process otherwise; the port bounds every wait,
+  since a torch collective can be waited on without blocking the
+  process. The NCCL settings it relies on: outside elastic mode torch's
+  defaults (TORCH_NCCL_ASYNC_ERROR_HANDLING tears the process down when
+  a collective outlives the process group's timeout), with that timeout
+  set by init to twice the window plus 5 s, so the watchdog's abort
+  comes first; in elastic mode TORCH_NCCL_BLOCKING_WAIT=1 and
+  TORCH_NCCL_ASYNC_ERROR_HANDLING=0 with the window as the timeout
+  (core/topology.py), under which a timed-out `Work.wait()` also raises.
 """
 
 from __future__ import annotations
@@ -92,8 +127,12 @@ from horovod_tpu_torch.common.exceptions import (DuplicateNameError,
                                                  HorovodInternalError)
 from horovod_tpu_torch.core import topology
 from horovod_tpu_torch.core.process_sets import ProcessSet, global_process_set
+from horovod_tpu_torch.observability import flight as _flight
+from horovod_tpu_torch.observability import metrics as _metrics
+from horovod_tpu_torch.observability import tracing as _tracing
 from horovod_tpu_torch.ops import adasum, fusion
 from horovod_tpu_torch.profiler import perfscope
+from horovod_tpu_torch.testing import faults as _faults
 
 # torch 2.13 renames the tensor forms to *_single and deprecates the old
 # names; older builds have only the old ones.
@@ -139,22 +178,155 @@ def comm_failure_guard(e: BaseException, what: str) -> None:
         raise HorovodInternalError(f"{what} failed: {e}") from e
 
 
+# ------------------------------------------------------ the stall watchdog
+
+def _restore_grace_active(first_start: float, shutdown_sec: float) -> bool:
+    """True while a peer's checkpoint restore should extend the stall
+    deadline: the restore signal is fresh and the total wait has not used
+    up shutdown + HOROVOD_CKPT_RESTORE_GRACE_MAX (ckpt/resume.py). Probed
+    once per armed window; a failing probe never changes the verdict."""
+    try:
+        from horovod_tpu_torch.ckpt import resume as _resume
+        if time.monotonic() - first_start >= \
+                shutdown_sec + _resume.grace_max_seconds():
+            return False
+        return _resume.peer_restore_active()
+    except Exception:
+        return False
+
+
+def _abort_world(reason: str) -> None:
+    """Abort the world after a stall: NCCL's communicators are aborted
+    (every group), so the stalled collective cannot complete into a later
+    one; gloo's abort would wait for the pending operation, which the
+    process group's timeout bounds instead. Later collectives raise."""
+    try:
+        if dist.is_initialized() and dist.get_backend() == "nccl":
+            dist.distributed_c10d._abort_process_group()
+    except Exception:
+        pass
+    topology.mark_aborted(reason)
+
+
+class StallWatchdog:
+    """A bounded wait on one collective's Work (the JAX package's
+    StallWatchdog over a blocking wait): the inspector names the wait
+    while it is pending; the caller's thread polls `is_completed()`,
+    warns once at `warn_sec`, and at `shutdown_sec` aborts the world and
+    raises HorovodInternalError naming the collective."""
+
+    def __init__(self, inspector, warn_sec: float, shutdown_sec: float,
+                 poll_interval: float = 0.002):
+        self.inspector = inspector
+        self.warn_sec = warn_sec
+        self.shutdown_sec = shutdown_sec
+        self.poll_interval = poll_interval
+
+    def guard(self, name: str, work) -> None:
+        from horovod_tpu_torch.common.hvd_logging import get_logger
+        self.inspector.submit(name)
+        try:
+            start = first_start = time.monotonic()
+            warned = False
+            delay = 2e-5
+            while not work.is_completed():
+                age = time.monotonic() - start
+                if not warned and age >= self.warn_sec:
+                    warned = True
+                    _mx()["stall_warn"].labels(source="watchdog").inc()
+                    _flight.record(
+                        "stall", f"collective '{name}' stalled for "
+                        f"{age:.1f}s (warning threshold "
+                        f"{self.warn_sec:.0f}s)")
+                    get_logger().warning(
+                        "collective '%s' stalled for %.1fs "
+                        "(HOROVOD_STALL_CHECK_TIME_SECONDS=%.0f)",
+                        name, age, self.warn_sec)
+                if self.shutdown_sec > 0 and age >= self.shutdown_sec:
+                    if _restore_grace_active(first_start,
+                                             self.shutdown_sec):
+                        # A peer is restoring a checkpoint: re-arm the
+                        # window from now, bounded by the grace maximum.
+                        start = time.monotonic()
+                        _flight.record(
+                            "ckpt", f"stall deadline re-armed for "
+                            f"'{name}': peer checkpoint restore in "
+                            f"progress (waited {start - first_start:.1f}s "
+                            f"total)")
+                        continue
+                    self._shutdown(name)
+                time.sleep(delay)
+                delay = min(delay * 2, self.poll_interval)
+            work.wait()  # the error of a failed one; the stream order
+        finally:
+            self.inspector.done(name)
+
+    def _shutdown(self, name: str) -> None:
+        stalled, _ = self.inspector.check()
+        _mx()["stall_shut"].inc()
+        try:
+            from horovod_tpu_torch.analysis import verifier as _vf
+            fp_context = _vf.stall_context()
+        except Exception:
+            fp_context = ""
+        msg = (f"collective '{name}' stalled past "
+               f"HOROVOD_STALL_SHUTDOWN_TIME_SECONDS="
+               f"{self.shutdown_sec:.0f}s"
+               + (f" (outstanding: {', '.join(stalled)})" if stalled
+                  else "") + fp_context)
+        _abort_world(msg)
+        try:
+            _flight.record("stall", f"collective '{name}' stalled past "
+                           f"shutdown window {self.shutdown_sec:.0f}s")
+            _flight.dump("stall_watchdog")
+            flight_hint = _flight.dump_hint()
+        except Exception:
+            flight_hint = ""
+        raise HorovodInternalError(msg + flight_hint)
+
+
+def guarded_wait(work, name: str) -> None:
+    """Wait on a collective's Work under the stall inspector: the plain
+    wait with submit/done bookkeeping, or the StallWatchdog's bounded
+    wait where HOROVOD_STALL_SHUTDOWN_TIME_SECONDS > 0."""
+    st = topology._state
+    si = st.stall_inspector
+    if si is None:
+        work.wait()
+        return
+    cfg = st.config
+    if cfg.stall_shutdown_seconds <= 0:
+        si.submit(name)
+        try:
+            work.wait()
+        finally:
+            si.done(name)
+        return
+    StallWatchdog(si, cfg.stall_warning_seconds,
+                  cfg.stall_shutdown_seconds).guard(name, work)
+
+
 class Handle:
     """An in-flight collective: its Work, the tensor it writes, what
-    finishes the result once the Work is done, and the name it holds."""
+    finishes the result once the Work is done, and the name it holds;
+    `label` names it to the stall watchdog, `meta` is its (op, dtype,
+    bytes, tensors) for the metrics."""
 
     def __init__(self, work, out, finish=None, name: Optional[str] = None):
         self.work = work
         self.out = out
         self._finish = finish
         self.name = name
+        self.label: Optional[str] = None
+        self.meta: Optional[tuple] = None
         self._done = False
 
     def wait(self):
         if not self._done:
             try:
                 if self.work is not None:
-                    self.work.wait()
+                    guarded_wait(self.work, self.label or self.name
+                                 or "collective")
                     self.work = None
                 if self._finish is not None:
                     self.out = self._finish(self.out)
@@ -213,26 +385,269 @@ def _named(name: Optional[str], start: Callable[[], Handle]) -> Handle:
     return h
 
 
+# ------------------------------------------------ the dispatch choke point
+
+def dispatch(desc: str, ps: ProcessSet, name: str = "") -> None:
+    """The dispatch choke point (the JAX package's `_consistency`): one
+    flight record, a tracing dispatch marker under the ambient step, the
+    consistency check and the fingerprint verifier, each scoped to the
+    process set's members. Runs before the collective is launched, so a
+    rank that calls something else is named instead of deadlocking.
+    Last comes the `collective.dispatch` fault site (testing/faults.py):
+    a latency there delays this rank's launch after the checks agreed."""
+    _flight.record_collective(ps.process_set_id, desc, name)
+    if _tracing.active():
+        _tracing.record_dispatch(desc, name)
+    from horovod_tpu_torch.analysis import verifier as _vf
+    from horovod_tpu_torch.core import consistency as _cc
+    checker = _cc.get()
+    v = _vf.get()
+    if checker is not None or v is not None:
+        ranks = ps.ranks  # None: the world
+        if ranks is None:
+            group = "world"
+        else:
+            import hashlib
+            tag = hashlib.sha256(repr(tuple(ranks)).encode()).hexdigest()
+            group = f"ps{ps.process_set_id}-{tag[:12]}"
+        if checker is not None:
+            checker.check(desc, ranks=ranks, group=group)
+        if v is not None:
+            v.record(f"{desc}|name={name}" if name else desc, ranks=ranks,
+                     group=group)
+    if _faults._injector is not None:
+        _faults.inject("collective.dispatch", f"rank{topology.rank()}:{name}")
+
+
+# The descriptors, in the JAX package's text: shapes carry the set's size
+# as dim 0 (its global arrays), dtypes its str(dtype) spelling.
+
+def _dt(t: torch.Tensor) -> str:
+    return fusion.dtype_name(t.dtype)
+
+
+def describe_allreduce(t: torch.Tensor, rop: T.ReduceOp, ps: ProcessSet
+                       ) -> str:
+    return (f"allreduce(shape={(ps.size(),) + tuple(t.shape)},"
+            f"dtype={_dt(t)},op={int(rop)},ps={ps.process_set_id})")
+
+
+def describe_grouped(tensors: Sequence[torch.Tensor], rop: T.ReduceOp,
+                     ps: ProcessSet, kind: str = "grouped_allreduce"
+                     ) -> str:
+    k = ps.size()
+    return (f"{kind}(n={len(tensors)},shapes="
+            f"{[(k,) + tuple(t.shape) for t in tensors]},op={int(rop)},"
+            f"ps={ps.process_set_id})")
+
+
+def describe_bucketed(shapes: Sequence[Tuple[int, ...]], rop: T.ReduceOp,
+                      thresh: int, plan, ps: ProcessSet) -> str:
+    k = ps.size()
+    return (f"bucketed_allreduce(n={len(shapes)},shapes="
+            f"{[(k,) + tuple(s) for s in shapes]},op={int(rop)},"
+            f"thresh={thresh},plan={fusion.plan_signature(plan)},"
+            f"ps={ps.process_set_id})")
+
+
+def describe_broadcast(t: torch.Tensor, root: int, ps: ProcessSet) -> str:
+    return (f"broadcast(shape={(ps.size(),) + tuple(t.shape)},"
+            f"dtype={_dt(t)},root={root},ps={ps.process_set_id})")
+
+
+def describe_allgather(t: torch.Tensor, ps: ProcessSet,
+                       kind: str = "allgather") -> str:
+    return (f"{kind}(rest={tuple(t.shape[1:])},ndim={t.dim() + 1},"
+            f"dtype={_dt(t)},ps={ps.process_set_id})")
+
+
+def describe_grouped_allgather(tensors: Sequence[torch.Tensor],
+                               ps: ProcessSet) -> str:
+    return (f"grouped_allgather(n={len(tensors)},"
+            f"rests={[tuple(t.shape[1:]) for t in tensors]},"
+            f"dtypes={[_dt(t) for t in tensors]},ps={ps.process_set_id})")
+
+
+def describe_reducescatter(t: torch.Tensor, rop: T.ReduceOp,
+                           ps: ProcessSet) -> str:
+    return (f"reducescatter(shape={(ps.size(),) + tuple(t.shape)},"
+            f"dtype={_dt(t)},op={int(rop)},ps={ps.process_set_id})")
+
+
+def describe_barrier(ps: ProcessSet) -> str:
+    return f"barrier(ps={ps.process_set_id})"
+
+
+# ------------------------------------------------------------ the metrics
+
+_mx_cache = None
+_cum_bytes: dict = {}
+_cum_lock = threading.Lock()
+
+
+def _mx():
+    """The collectives' instrument handles, cached per registry; every
+    family is the shared no-op under HOROVOD_METRICS=0."""
+    global _mx_cache
+    m = _metrics
+    reg = m.registry()
+    if _mx_cache is None or _mx_cache[0] is not reg:
+        _mx_cache = (reg, {
+            "calls": reg.counter(
+                "horovod_collective_calls_total",
+                "Eager collective calls", labelnames=("op", "dtype")),
+            "bytes": reg.counter(
+                "horovod_collective_bytes_total",
+                "Global payload bytes moved by collectives",
+                labelnames=("op", "dtype")),
+            "seconds": reg.histogram(
+                "horovod_collective_seconds",
+                "Host-side wall time per collective call (launch for the "
+                "async forms, launch and wait for the blocking ones)",
+                labelnames=("op",), buckets=m.TIME_BUCKETS),
+            "group": reg.histogram(
+                "horovod_grouped_fusion_tensors",
+                "Tensors per grouped (fused) collective call",
+                labelnames=("op",), buckets=m.COUNT_BUCKETS),
+            "bucket_n": reg.counter(
+                "horovod_bucket_dispatch_total",
+                "Fusion buckets dispatched by the pipelined allreduce"),
+            "bucket_bytes": reg.histogram(
+                "horovod_bucket_bytes",
+                "Global payload bytes per dispatched fusion bucket",
+                buckets=m.SIZE_BUCKETS),
+            "bucket_secs": reg.histogram(
+                "horovod_bucket_seconds",
+                "Per-bucket launch-to-complete wall time (timed steps "
+                "only)", buckets=m.TIME_BUCKETS),
+            "overlap": reg.gauge(
+                "horovod_overlap_fraction",
+                "Estimated fraction of bucket in-flight time shared with "
+                "another bucket (1 - wall_window / sum_of_bucket_spans; "
+                "timed steps only)"),
+            "axis_bytes": reg.counter(
+                "horovod_axis_comms_bytes_total",
+                "Eager collective payload bytes attributed to a named "
+                "mesh axis (process sets built by axis_process_set)",
+                labelnames=("axis", "op")),
+            "stall_warn": reg.counter(
+                "horovod_stall_warnings_total",
+                "Stall warnings", labelnames=("source",)),
+            "stall_shut": reg.counter(
+                "horovod_stall_shutdowns_total",
+                "Stall shutdown raises (collective watchdog)"),
+        })
+    return _mx_cache[1]
+
+
+def _meta(h: Handle, ps: ProcessSet, tensors: Sequence[torch.Tensor],
+          ntensors: Optional[int] = None) -> Handle:
+    """Attach (dtype, global bytes, tensors, axis) to `h` for the metrics:
+    the set's size times this rank's payload."""
+    nbytes = ps.size() * sum(t.numel() * t.element_size() for t in tensors)
+    h.meta = (_dt(tensors[0]) if tensors else "", nbytes, ntensors,
+              getattr(ps, "mesh_axis", None))
+    return h
+
+
+def _record(op: str, meta: tuple, seconds: float, tl) -> None:
+    dtype, nbytes, ntensors, axis = meta
+    mx = _mx()
+    mx["calls"].labels(op=op, dtype=dtype).inc()
+    if nbytes:
+        mx["bytes"].labels(op=op, dtype=dtype).inc(nbytes)
+        if axis:
+            mx["axis_bytes"].labels(axis=axis, op=op).inc(nbytes)
+    mx["seconds"].labels(op=op).observe(seconds)
+    if ntensors is not None:
+        mx["group"].labels(op=op).observe(ntensors)
+    if tl is not None:
+        with _cum_lock:
+            _cum_bytes[op] = cum = _cum_bytes.get(op, 0.0) + nbytes
+        tl.counter("horovod_collective_bytes_total", {op: cum})
+
+
+class _BucketStats:
+    """Buckets dispatched by the hook path and the last measured overlap
+    fraction (the JAX package's `_BucketStats`)."""
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self.dispatched = 0  # guarded-by: _lock
+        self.profiled_calls = 0  # guarded-by: _lock
+        self.last_overlap: float = 0.0  # guarded-by: _lock
+
+    def record(self, n_buckets: int, overlap=None) -> None:
+        with self._lock:
+            self.dispatched += n_buckets
+            if overlap is not None:
+                self.profiled_calls += 1
+                self.last_overlap = float(overlap)
+
+    def snapshot(self) -> Tuple[int, int, float]:
+        with self._lock:
+            return self.dispatched, self.profiled_calls, self.last_overlap
+
+
+_bucket_stats = _BucketStats()
+
+
+def record_buckets(n_buckets: int,
+                   spans: Optional[Sequence[Tuple[float, float]]] = None
+                   ) -> None:
+    """A hook-path step's buckets: the count, and where a tuner timed
+    them, their overlap and times (`horovod_overlap_fraction`,
+    `horovod_bucket_seconds`)."""
+    overlap = overlap_fraction(spans) if spans else None
+    _bucket_stats.record(n_buckets, overlap)
+    if spans and _metrics.registry().enabled:
+        mx = _mx()
+        for b, e in spans:
+            mx["bucket_secs"].observe(e - b)
+        if overlap is not None:
+            mx["overlap"].set(overlap)
+
+
+def bucket_overlap_stats() -> Tuple[int, int, float]:
+    """(buckets_dispatched, profiled_calls, last_overlap_fraction)."""
+    return _bucket_stats.snapshot()
+
+
+def overlap_fraction(spans: Sequence[Tuple[float, float]]
+                     ) -> Optional[float]:
+    """1 - wall_window / sum of the (start, end) spans: the share of the
+    buckets' in-flight time shared with another bucket."""
+    total = sum(e - b for b, e in spans)
+    if not spans or total <= 0:
+        return None
+    window = max(e for _, e in spans) - min(b for b, _ in spans)
+    return max(0.0, 1.0 - window / total)
+
+
 class instrument:
-    """A timeline span and perfscope's `comms` attribution around a
-    collective's host window (the JAX package's `_instrument`). With no
-    timeline and HOROVOD_PERFSCOPE=0 it reads no clock. Nested
-    attributions (a kernel build inside the window) are subtracted from
-    the window's own by diffing `attributed_marker`."""
+    """A timeline span, perfscope's `comms` attribution, the metrics and
+    a tracing span around a collective's host window (the JAX package's
+    `_instrument`). With no timeline, HOROVOD_PERFSCOPE=0 and
+    HOROVOD_METRICS=0 it reads no clock. Nested attributions (a kernel
+    build inside the window) are subtracted from the window's own by
+    diffing `attributed_marker`. `meta` (set by the caller once the op is
+    resolved; see `_meta`) feeds the metrics."""
 
     __slots__ = ("name", "activity", "tl", "ps", "timed", "t0",
-                 "attr_mark")
+                 "attr_mark", "meta", "enabled")
 
     def __init__(self, name: str, activity: str) -> None:
         self.name = name
         self.activity = activity
+        self.meta: Optional[tuple] = None
 
     def __enter__(self) -> "instrument":
         self.ps = perfscope.get()
         self.tl = topology.timeline()
         if self.tl is not None:
             self.tl.span_begin(self.name, self.activity)
-        self.timed = self.ps is not perfscope.NOOP
+        self.enabled = _metrics.registry().enabled
+        self.timed = self.enabled or self.ps is not perfscope.NOOP
         if self.timed:
             self.attr_mark = self.ps.attributed_marker()
             self.t0 = time.perf_counter()
@@ -246,6 +661,12 @@ class instrument:
         if self.timed:
             nested = self.ps.attributed_marker() - self.attr_mark
             self.ps.attribute("comms", dt - nested)
+            if _tracing.active():
+                _tracing.collective_span(
+                    self.name, self.activity, dt,
+                    float(self.meta[1]) if self.meta else None)
+            if self.enabled and self.meta is not None and exc is None:
+                _record(self.activity.lower(), self.meta, dt, self.tl)
         if exc is not None:
             comm_failure_guard(exc, f"{self.activity} {self.name}")
         return False
@@ -255,13 +676,20 @@ def _call(name: str, activity: str, start: Callable[[], Handle],
           wait: bool):
     """Start an op inside its instrumented window; with `wait`, wait for
     it there too and return its result, else return the handle."""
-    with instrument(name, activity):
+    with instrument(name, activity) as ins:
         h = start()
+        ins.meta = h.meta
+        if h.label is None:
+            h.label = name
         return h.wait() if wait else h
 
 
 def _resolve(process_set: Optional[ProcessSet]) -> ProcessSet:
-    topology._require()
+    st = topology._require()
+    if st.aborted:
+        raise HorovodInternalError(
+            f"the world was aborted ({st.aborted}); re-initialize before "
+            f"the next collective")
     ps = process_set if process_set is not None else global_process_set
     if ps.process_set_id is None:
         raise HorovodError(
@@ -343,9 +771,12 @@ def _hier_allreduce(x: torch.Tensor, h: topology.Hier):
     if pad:
         v = torch.cat([v, v.new_zeros(pad)])
     s = v.new_empty(v.numel() // h.n_local)
-    _reduce_scatter_single(s, v, group=h.local_group, async_op=True).wait()
+    guarded_wait(_reduce_scatter_single(s, v, group=h.local_group,
+                                        async_op=True),
+                 "hierarchical_allreduce/local")
     if h.n_cross > 1:
-        dist.all_reduce(s, group=h.cross_group, async_op=True).wait()
+        guarded_wait(dist.all_reduce(s, group=h.cross_group, async_op=True),
+                     "hierarchical_allreduce/cross")
     out = torch.empty_like(v)
     work = _all_gather_single(out, s, group=h.local_group, async_op=True)
     shape = x.shape
@@ -407,9 +838,12 @@ def _allreduce(tensor, average, name, op, prescale_factor, postscale_factor,
             return _into(tensor, h) if inplace else h
         return _named(name, go)
     start = _launch(rop, prescale_factor, postscale_factor, ps)
+    dispatch(describe_allreduce(tensor, rop, ps), ps, name or "allreduce")
     if inplace:  # contiguous() is the tensor itself where it can be
-        return _named(name, lambda: _into(tensor, start(tensor.contiguous())))
-    return _named(name, lambda: start(tensor.clone()))
+        h = _named(name, lambda: _into(tensor, start(tensor.contiguous())))
+    else:
+        h = _named(name, lambda: start(tensor.clone()))
+    return _meta(h, ps, [tensor])
 
 
 def allreduce_async(tensor: torch.Tensor, average: Optional[bool] = None,
@@ -466,6 +900,10 @@ def _fused(tensors, average, op, prescale, postscale, process_set,
     ps = _resolve(process_set)
     rop = _normalize_op(average, op)
     start = _launch(rop, prescale, postscale, ps)
+    if tensors:
+        dispatch(_describe_fused(tensors, rop, ps, reverse),
+                 ps, name or ("grouped_allreduce" if reverse is not None
+                              else "bucketed_allreduce"))
 
     def go() -> Handle:
         if not tensors:
@@ -508,7 +946,26 @@ def _fused(tensors, average, op, prescale, postscale, process_set,
 
         return Handle(None, None, write)
 
-    return _named(name, go)
+    return _meta(_named(name, go), ps, tensors, len(tensors))
+
+
+def _describe_fused(tensors, rop: T.ReduceOp, ps: ProcessSet,
+                    reverse: Optional[bool]) -> str:
+    """A grouped call's descriptor; a bucketed one (reverse None) names
+    its threshold and plan, unless it is one the JAX package sends as a
+    grouped call (one tensor, Adasum, the hierarchical path)."""
+    cfg = topology.config()
+    hier = _hier_for(ps, cfg.hierarchical_allreduce) \
+        if rop in (T.ReduceOp.SUM, T.ReduceOp.AVERAGE) else None
+    if reverse is not None or len(tensors) == 1 \
+            or rop == T.ReduceOp.ADASUM or hier is not None:
+        return describe_grouped(tensors, rop, ps)
+    thresh = fusion.effective_threshold(cfg.fusion_threshold_bytes,
+                                        cfg.bucket_cap_bytes)
+    plan = fusion.plan_buckets([(tuple(t.shape), t.dtype) for t in tensors],
+                               thresh, reverse=cfg.bucket_reverse)
+    return describe_bucketed([tuple(t.shape) for t in tensors], rop, thresh,
+                             plan, ps)
 
 
 def grouped_allreduce_async(tensors: Sequence[torch.Tensor],
@@ -695,14 +1152,22 @@ class BucketTimer:
         return h
 
     def results(self) -> List[Tuple[int, float]]:
-        """(wire bytes, seconds) per bucket, in launch order; resets."""
+        """(wire bytes, seconds) per bucket, in launch order; resets.
+        `spans` then holds each bucket's (start, end) in seconds."""
         out = []
+        self.spans: List[Tuple[float, float]] = []
         for nbytes, t0, t1 in self._recs:
             if self._cuda:
                 t1.synchronize()
-                out.append((nbytes, t0.elapsed_time(t1) / 1e3))
+                base = self._recs[0][1]
+                b = base.elapsed_time(t0) / 1e3
+                e = base.elapsed_time(t1) / 1e3
             elif t1 is not None:
-                out.append((nbytes, t1 - t0))
+                b, e = t0, t1
+            else:
+                continue
+            out.append((nbytes, e - b))
+            self.spans.append((b, e))
         self._recs = []
         _bucket_tls.timings = out
         return out
@@ -718,7 +1183,8 @@ def _exchange_rows(row: Sequence[int], ps: ProcessSet) -> List[List[int]]:
     mine = torch.tensor(list(row), dtype=torch.int64,
                         device=topology.device())
     rows = mine.new_empty(ps.size() * mine.numel())
-    _all_gather_single(rows, mine, group=ps.group, async_op=True).wait()
+    guarded_wait(_all_gather_single(rows, mine, group=ps.group,
+                                    async_op=True), "size_exchange")
     return rows.view(ps.size(), -1).tolist()
 
 
@@ -737,8 +1203,9 @@ def _gather_start(x: torch.Tensor, sizes: Sequence[int], ps: ProcessSet
         if even else None
     if hier is not None:
         g1 = x.new_empty((hier.n_local * x.shape[0],) + rest)
-        _all_gather_single(g1, x, group=hier.local_group,
-                           async_op=True).wait()
+        guarded_wait(_all_gather_single(g1, x, group=hier.local_group,
+                                        async_op=True),
+                     "hierarchical_allgather/local")
         if hier.n_cross == 1:
             return Handle(None, g1)
         out = x.new_empty((k * x.shape[0],) + rest)
@@ -765,12 +1232,13 @@ def _check_dims(t: torch.Tensor, what: str) -> None:
 def _allgather(tensor, name, process_set) -> Handle:
     ps = _resolve(process_set)
     _check_dims(tensor, "allgather")
+    dispatch(describe_allgather(tensor, ps), ps, name or "allgather")
 
     def go() -> Handle:
         sizes = [r[0] for r in _exchange_rows([tensor.shape[0]], ps)]
         return _gather_start(tensor, sizes, ps)
 
-    return _named(name, go)
+    return _meta(_named(name, go), ps, [tensor])
 
 
 def allgather_async(tensor: torch.Tensor, name: Optional[str] = None,
@@ -792,6 +1260,9 @@ def _grouped_allgather(tensors, name, process_set) -> Handle:
     ps = _resolve(process_set)
     for t in tensors:
         _check_dims(t, "allgather")
+    if tensors:
+        dispatch(describe_grouped_allgather(tensors, ps), ps,
+                 name or "grouped_allgather")
 
     def go() -> Handle:
         if not tensors:
@@ -800,7 +1271,7 @@ def _grouped_allgather(tensors, name, process_set) -> Handle:
         return _joined([_gather_start(t, [r[i] for r in rows], ps)
                         for i, t in enumerate(tensors)])
 
-    return _named(name, go)
+    return _meta(_named(name, go), ps, tensors, len(tensors))
 
 
 def grouped_allgather_async(tensors: Sequence[torch.Tensor],
@@ -875,8 +1346,11 @@ def _rs(tensor, op, name, prescale_factor, postscale_factor, process_set
         ) -> Handle:
     ps = _resolve(process_set)
     rop = _rs_op(op)
-    return _named(name, lambda: _rs_start(tensor, rop, prescale_factor,
-                                          postscale_factor, ps))
+    _check_dims(tensor, "reducescatter")
+    dispatch(describe_reducescatter(tensor, rop, ps), ps,
+             name or "reducescatter")
+    return _meta(_named(name, lambda: _rs_start(
+        tensor, rop, prescale_factor, postscale_factor, ps)), ps, [tensor])
 
 
 def reducescatter_async(tensor: torch.Tensor, op=T.ReduceOp.AVERAGE,
@@ -907,9 +1381,12 @@ def _grouped_rs(tensors, op, name, prescale_factor, postscale_factor,
                 process_set) -> Handle:
     ps = _resolve(process_set)
     rop = _rs_op(op)
-    return _named(name, lambda: _joined([
+    if tensors:
+        dispatch(describe_grouped(tensors, rop, ps, "grouped_reducescatter"),
+                 ps, name or "grouped_reducescatter")
+    return _meta(_named(name, lambda: _joined([
         _rs_start(t, rop, prescale_factor, postscale_factor, ps)
-        for t in tensors]))
+        for t in tensors])), ps, tensors, len(tensors))
 
 
 def grouped_reducescatter_async(tensors: Sequence[torch.Tensor],
@@ -960,6 +1437,8 @@ def _alltoall(tensor, splits, name, process_set) -> Handle:
         if len(mine) != k or sum(mine) != d0:
             raise HorovodError("splits must have one entry per rank and "
                                "sum to dim 0")
+    dispatch(describe_allgather(tensor, ps, "alltoall"), ps,
+             name or "alltoall")
 
     def go() -> Handle:
         matrix = [mine] * k if splits is None else _exchange_rows(mine, ps)
@@ -973,7 +1452,7 @@ def _alltoall(tensor, splits, name, process_set) -> Handle:
         return Handle(work, out, lambda y: (
             y, torch.tensor(recv, dtype=torch.int64)))
 
-    return _named(name, go)
+    return _meta(_named(name, go), ps, [tensor])
 
 
 def alltoall_async(tensor: torch.Tensor, splits=None,
@@ -999,7 +1478,8 @@ def alltoall(tensor: torch.Tensor, splits=None, name: Optional[str] = None,
 def _broadcast(tensor, root_rank, name, process_set,
                inplace: bool = False) -> Handle:
     ps = _resolve(process_set)
-    ps.rank_index(root_rank)  # the root must be a member
+    root = ps.rank_index(root_rank)  # the root must be a member
+    dispatch(describe_broadcast(tensor, root, ps), ps, name or "broadcast")
 
     def go() -> Handle:
         out = tensor.contiguous() if inplace else tensor.clone()
@@ -1007,7 +1487,7 @@ def _broadcast(tensor, root_rank, name, process_set,
                                   async_op=True), out)
         return _into(tensor, h) if inplace else h
 
-    return _named(name, go)
+    return _meta(_named(name, go), ps, [tensor])
 
 
 def broadcast_async(tensor: torch.Tensor, root_rank: int,
@@ -1050,8 +1530,10 @@ def barrier(process_set: Optional[ProcessSet] = None) -> None:
     all-reduce on the collective's device, read back."""
     ps = _resolve(process_set)
     with instrument("barrier", "BARRIER"):
+        dispatch(describe_barrier(ps), ps)
         one = torch.ones(1, dtype=torch.int32, device=topology.device())
-        dist.all_reduce(one, group=ps.group, async_op=True).wait()
+        guarded_wait(dist.all_reduce(one, group=ps.group, async_op=True),
+                     "barrier")
         one.item()
 
 

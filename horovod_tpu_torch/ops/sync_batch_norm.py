@@ -42,8 +42,10 @@ import torch.nn as nn
 def _all_reduce(x: torch.Tensor, group) -> None:
     """In-place sum over `group`; in elastic mode a transport failure is
     a HorovodInternalError (ops/collectives.py comm_failure_guard)."""
+    from horovod_tpu_torch.ops.collectives import guarded_wait
     try:
-        dist.all_reduce(x, group=group, async_op=True).wait()
+        guarded_wait(dist.all_reduce(x, group=group, async_op=True),
+                     "sync_batch_norm")
     except Exception as e:
         from horovod_tpu_torch.ops.collectives import comm_failure_guard
         comm_failure_guard(e, "sync batch norm all-reduce")

@@ -60,6 +60,17 @@ time; on a card the hooks run on autograd's device thread, and that
 time is taken out of the phase the training thread is in. The bytes a
 step reduces go to `set_comms_axes`, under "hvd" (the JAX package's
 global axis) or the process set's id.
+
+The hook path passes the collectives' dispatch choke point
+(`collectives.dispatch`) once a step, at its first launch, with the
+descriptor the JAX package's one `bucketed_allreduce` call of the step
+gives (the dense gradients' shapes, the threshold and the plan's
+signature): one flight record, one consistency round and one verifier
+record a step, however many buckets it has. Each bucket is one
+collective call in the metrics (its bytes the set's size times the
+bucket's), one tracing span, and one wait under the stall watchdog.
+While a tuner times the buckets, their overlap feeds
+`horovod_overlap_fraction` and `bucket_overlap_stats`.
 """
 
 from __future__ import annotations
@@ -226,6 +237,8 @@ class DistributedOptimizer:
         force (between steps only)."""
         self.plan_threshold = self._threshold()
         dense, plan = self._dense_plan(self.plan_threshold)
+        self._dense, self._dense_plan_raw = dense, plan
+        self._desc = None  # the step's descriptor, built at its first launch
         self.plan = [fusion.Bucket(b.dtype, b.itemsize, tuple(
             fusion.BucketItem(dense[it.index], it.start, it.size)
             for it in b.items)) for b in plan]
@@ -271,7 +284,14 @@ class DistributedOptimizer:
         ps = collectives._resolve(self.process_set)
         pre, post, rop = scale_factors(self.op, ps.size(),
                                        self.gradient_predivide_factor)
+        if self.hooked:
+            if self._desc is None:
+                self._desc = collectives.describe_bucketed(
+                    [tuple(self.params[i].shape) for i in self._dense],
+                    rop, self.plan_threshold, self._dense_plan_raw, ps)
+            collectives.dispatch(self._desc, ps, "bucketed_allreduce")
         self._start = collectives._launch(rop, pre, post, ps)
+        self._ps = ps
         pm, bt = self._tuners()
         if pm is not None:
             self._t_first = time.perf_counter()
@@ -282,9 +302,11 @@ class DistributedOptimizer:
         """Feed the live tuners at the end of a reduction, then re-plan
         if a decision moved the threshold."""
         pm, bt = self._tuners()
+        self._spans = None
         if bt is not None and self.hooked:  # it tunes the bucket path
             for nb, sec in self._timer.results():
                 bt.record_bucket(nb, sec)
+            self._spans = self._timer.spans
             bt.update()
         if pm is not None:
             if topology.device().type == "cuda":
@@ -321,8 +343,8 @@ class DistributedOptimizer:
         return self._wires[i]
 
     def _launch(self, bi: int) -> None:
-        with collectives.instrument(f"bucketed_allreduce/b{bi}",
-                                    "ALLREDUCE"):
+        label = f"bucketed_allreduce/b{bi}"
+        with collectives.instrument(label, "ALLREDUCE") as ins:
             if self._start is None:
                 self._begin()
             wire = fusion.pack(self.plan[bi], {i: self._wire(i)[0]
@@ -333,6 +355,12 @@ class DistributedOptimizer:
                                        lambda: start(wire))
             else:
                 h = start(wire)
+            h.label = label
+            ins.meta = collectives._meta(h, self._ps, [wire]).meta
+        if ins.enabled:
+            mx = collectives._mx()
+            mx["bucket_n"].inc()
+            mx["bucket_bytes"].observe(ins.meta[1])
         self._inflight[bi] = h
 
     def _prepare_grads(self) -> List[int]:
@@ -388,7 +416,9 @@ class DistributedOptimizer:
         self._reduce_sparse(sparse)
         self.collectives_per_step = len(self.plan) + 2 * len(sparse)
         nbytes = self.plan_bytes  # the plan may change below
+        n_buckets = len(self.plan)  # the plan may change in _tune
         self._tune(nbytes)
+        collectives.record_buckets(n_buckets, self._spans)
         new = set(sparse) - self._sparse
         if new:  # every rank sees the same sparse gradients
             self._sparse |= new

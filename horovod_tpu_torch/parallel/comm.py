@@ -45,8 +45,9 @@ def _shift(t: torch.Tensor, ps, step: int) -> torch.Tensor:
     out = torch.empty_like(t)
     ops = [dist.P2POp(dist.isend, t, ranks[(i + step) % n], group),
            dist.P2POp(dist.irecv, out, ranks[(i - step) % n], group)]
+    from horovod_tpu_torch.ops.collectives import guarded_wait
     for work in dist.batch_isend_irecv(ops):
-        work.wait()
+        guarded_wait(work, "ring_shift")
     return out
 
 
@@ -79,7 +80,9 @@ def _all_to_all(t: torch.Tensor, ps, split_axis: int,
     # (P, ...) with chunk j of split_axis at [j], contiguous for the send
     x = t.unflatten(split_axis, (n, -1)).movedim(split_axis, 0).contiguous()
     out = torch.empty_like(x)
-    dist.all_to_all_single(out, x, group=group, async_op=True).wait()
+    from horovod_tpu_torch.ops.collectives import guarded_wait
+    guarded_wait(dist.all_to_all_single(out, x, group=group, async_op=True),
+                 "all_to_all")
     # out[j] came from rank j: concatenated along concat_axis in rank order
     return out.movedim(0, concat_axis).flatten(concat_axis, concat_axis + 1)
 

@@ -53,9 +53,12 @@ Knobs: ``HOROVOD_PERFSCOPE=0`` swaps the scope for a no-op shell;
 ``HOROVOD_PERFSCOPE_WINDOW`` sizes the rolling window;
 ``HOROVOD_METRICS_PUSH_INTERVAL`` (seconds, default 5) paces the KV
 pushes, which happen at a step boundary at most once per interval and
-at ``hvd.shutdown()``. The metrics gauges and tracing spans the JAX
-scope also feeds, and the exporter thread that paces its pushes, come
-with observability (ROADMAP A13).
+at ``hvd.shutdown()``. Every recorded step also feeds the metrics
+registry (observability/metrics.py: ``horovod_perfscope_steps_total``,
+``horovod_step_seconds``, ``horovod_step_phase_seconds``,
+``horovod_mfu``), and every step is a ``train.step`` root span of the
+tracer (observability/tracing.py `step_begin`/`step_end`), under which
+the collectives, hook-launched buckets included, record their spans.
 """
 
 from __future__ import annotations
@@ -68,6 +71,7 @@ import time
 from typing import Any, Dict, List, Optional
 
 from horovod_tpu_torch.common import config as C
+from horovod_tpu_torch.observability import tracing
 
 PERFSCOPE_ENV = C.HOROVOD_PERFSCOPE
 PERFSCOPE_WINDOW_ENV = C.HOROVOD_PERFSCOPE_WINDOW
@@ -195,6 +199,11 @@ class PerfScope:
         self._next_push = 0.0  # time.monotonic() of the next push
         self._kv = None
         self._kv_dead = False
+        # (wall, phases) of the last recorded step, for the gauges.
+        self._last: Optional[tuple] = None  # guarded-by: _lock
+        # Free-form phases ever written to the per-phase gauge, so absent
+        # ones are zeroed each step.
+        self._gauge_phases: set = set()  # guarded-by: _lock
 
     def set_comms_axes(self, bytes_by_axis: Dict[str, float]) -> None:
         """Record the gradient-reduction bytes a step moves, by the group
@@ -220,7 +229,7 @@ class PerfScope:
             # implicit interval so its time is not lost.
             done = st is not None and self._record(st, now)
             self._step = _StepState(self._clock(), implicit, weight)
-        self._maybe_push(done)
+        self._after_record(done, closed=st is not None, opened=True)
         return True
 
     def _step_end(self) -> None:
@@ -230,14 +239,16 @@ class PerfScope:
                 return
             self._step = None
             done = self._record(st, self._clock())
-        self._maybe_push(done)
+        self._after_record(done, closed=True)
 
     def step_entry(self) -> None:
         """DistributedOptimizer hook (entry): open an implicit step when
         none is in flight, so comms and optimizer always land in one."""
         with self._lock:
-            if self._step is None:
-                self._step = _StepState(self._clock(), True, 1.0)
+            if self._step is not None:
+                return
+            self._step = _StepState(self._clock(), True, 1.0)
+        self._after_record(False, opened=True)
 
     def step_boundary(self) -> None:
         """DistributedOptimizer hook (exit): an optimizer step ends one
@@ -250,7 +261,7 @@ class PerfScope:
             now = self._clock()
             done = self._record(st, now)
             self._step = _StepState(now, True, 1.0)
-        self._maybe_push(done)
+        self._after_record(done, closed=True, opened=True)
 
     # ----------------------------------------------------------- phases
     def phase(self, name: str) -> Any:
@@ -314,18 +325,53 @@ class PerfScope:
         phases = {k: v / w for k, v in st.phases.items() if v > 0.0}
         self._recent.append((wall, phases))
         self._steps += 1
+        self._last = (wall, phases)
+        self._gauge_phases.update(phases)
         return True
 
-    def _maybe_push(self, recorded: bool) -> None:
-        """After a recorded step, push the summary when the interval has
-        passed (outside the lock: the push is a KV round trip)."""
-        if not recorded or self._kv_dead:
+    def _after_record(self, recorded: bool, closed: bool = False,
+                      opened: bool = False) -> None:
+        """Outside the lock: close the step's trace span and open the
+        next one's, update the gauges after a recorded step, and push the
+        summary when the interval has passed (a KV round trip)."""
+        if closed:
+            tracing.step_end()
+        if opened:
+            tracing.step_begin()
+        if not recorded:
+            return
+        self._update_metrics()
+        if self._kv_dead:
             return
         now = time.monotonic()
         if now < self._next_push:
             return
         self._next_push = now + self._push_interval
         self.push_summary()
+
+    def _update_metrics(self) -> None:
+        from horovod_tpu_torch.observability import metrics as m
+        reg = m.registry()
+        if not reg.enabled:
+            return
+        with self._lock:
+            if self._last is None:
+                return
+            wall, phases = self._last
+            labels = set(PHASES) | self._gauge_phases
+            flops = self._model_flops
+        mx = _metric_handles(reg, m)
+        mx["steps"].inc()
+        mx["wall"].observe(wall)
+        # Zero every phase absent from this step: the gauge is the last
+        # step's split, and a kernel build must not linger on the track.
+        for k in labels:
+            mx["phase"].labels(phase=k).set(phases.get(k, 0.0))
+        if flops:
+            from horovod_tpu_torch.profiler import flops as F
+            peak = F.peak_flops_per_chip()
+            if peak:
+                mx["mfu"].set(flops / wall / peak)
 
     # ---------------------------------------------------------- results
     def set_model_flops(self, flops_per_step: Optional[float],
@@ -340,8 +386,10 @@ class PerfScope:
 
     def reset(self) -> None:
         """Drop accumulated stats and abandon the in-flight step."""
+        tracing.step_end()
         with self._lock:
             self._step = None
+            self._last = None
             self._recent.clear()
             self._steps = 0
             self._model_flops = None
@@ -537,6 +585,32 @@ NOOP = _NoopScope()
 
 _scope: Optional[object] = None
 _scope_lock = threading.Lock()
+
+
+_metric_cache = None
+
+
+def _metric_handles(reg, m):
+    global _metric_cache
+    if _metric_cache is None or _metric_cache[0] is not reg:
+        _metric_cache = (reg, {
+            "steps": reg.counter(
+                "horovod_perfscope_steps_total",
+                "Training steps recorded by perfscope"),
+            "wall": reg.histogram(
+                "horovod_step_seconds",
+                "Wall time per training step (perfscope)",
+                buckets=m.TIME_BUCKETS),
+            "phase": reg.gauge(
+                "horovod_step_phase_seconds",
+                "Seconds the last step spent per phase (perfscope)",
+                labelnames=("phase",)),
+            "mfu": reg.gauge(
+                "horovod_mfu",
+                "Model FLOPs utilization of the last step (model FLOPs "
+                "/ wall / chip peak; PaLM convention)"),
+        })
+    return _metric_cache[1]
 
 
 def enabled() -> bool:

@@ -24,9 +24,12 @@ repairs it into strict JSON, also when the file ends inside an event.
 The file is opened by `start()`, on the caller's thread, so a path that
 cannot be written raises there. The queue is bounded: when the writer
 falls behind by `QUEUE_EVENTS` events, further events are dropped and
-counted in `dropped`, so tracing never blocks the training thread. This
-is the Python writer; the native C++ writer of the JAX package comes
-with `native/` (ROADMAP A13).
+counted in `dropped`, so tracing never blocks the training thread.
+This Python writer is the port's timeline. The JAX package's native C++
+writer is built and bound in the port too (native/ `NativeTimeline`,
+the same Chrome-trace events from a C++ writer thread), but it opens no
+NVTX range and streams no file that `recover_trace` can repair, so the
+timeline keeps this writer.
 """
 
 from __future__ import annotations

@@ -21,21 +21,25 @@ discovered slot (--min-np, --max-np, --slots-per-host), publishes each
 round's assignment and TCPStore through the rendezvous KV, blacklists
 failed hosts for --blacklist-cooldown-range, and gives up after
 --reset-limit resets or --elastic-timeout seconds without hosts.
---stall-check-shutdown-time-seconds is the bound after which a worker's
-collective raises there (HOROVOD_STALL_SHUTDOWN_TIME_SECONDS, the
-process group's timeout: core/topology.py).
-Not ported yet, and refused with a HorovodError naming the ROADMAP item
-rather than ignored: the stall inspector (A13), and so the stall flags
-outside elastic mode. The --autotune flags set the
+The stall flags (--stall-check, --no-stall-check,
+--stall-check-warning-time-seconds, --stall-check-shutdown-time-seconds)
+set the workers' HOROVOD_STALL_* knobs: the stall inspector warns about
+a collective pending past the warning window, and the watchdog bounds
+every collective wait by the shutdown window, in elastic mode and
+outside it (ops/collectives.py). The --autotune flags set the
 HOROVOD_AUTOTUNE* knobs that the workers' ParameterManager reads
 (core/autotune.py); --timeline-filename and --timeline-mark-cycles set
 HOROVOD_TIMELINE and HOROVOD_TIMELINE_MARK_CYCLES, and rank 0 writes
 the trace (core/topology.py). At the job's end the launcher writes the
 perfscope summaries the workers pushed to its KV into
-HOROVOD_FLIGHT_DIR (profiler/perfscope.py). The native KV server and
-the job-end persistence of flight-recorder, watch and trace records
-(A13) are left out: they serve subsystems the port does not have yet.
-The launcher does not narrow CUDA_VISIBLE_DEVICES: each worker takes
+HOROVOD_FLIGHT_DIR (profiler/perfscope.py), with the flight-recorder
+tails and the trace spans (observability/flight.py, tracing.py); the
+hvdwatch records come with ROADMAP A13 part 2. It starts the native KV
+server (native/, where the library builds) and injects
+HOROVOD_NATIVE_KV_ADDR/PORT, which the consistency check needs; with
+HOROVOD_KV_REPLICAS > 1 the rendezvous KV is the replicated control
+plane (runner/kv_ha.py). Its `GET /metrics` serves every rank's pushed
+metrics. The launcher does not narrow CUDA_VISIBLE_DEVICES: each worker takes
 `cuda:<local_rank>`.
 """
 
@@ -146,7 +150,7 @@ def build_parser() -> argparse.ArgumentParser:
                        help="disable the stall inspector")
     stall.add_argument("--stall-check", dest="no_stall_check",
                        action="store_false",
-                       help="not ported yet: ROADMAP A13")
+                       help="enable the stall inspector (the default)")
     p.add_argument("--stall-check-warning-time-seconds", type=int,
                    default=None)
     p.add_argument("--stall-check-shutdown-time-seconds", type=int,
@@ -249,21 +253,6 @@ def args_to_env(args: argparse.Namespace) -> Dict[str, str]:
         env[C.HOROVOD_LOG_HIDE_TIME] = \
             "1" if args.log_hide_timestamp else "0"
     return env
-
-
-def unported_flags(args: argparse.Namespace) -> List[str]:
-    """The flags given whose subsystem the port does not have yet, each
-    as "<flag> (ROADMAP <item>)"."""
-    given = [
-        ("--stall-check", args.no_stall_check is False, "A13"),
-        ("--stall-check-warning-time-seconds",
-         args.stall_check_warning_time_seconds is not None, "A13"),
-        # in elastic mode it bounds a worker's collectives
-        ("--stall-check-shutdown-time-seconds",
-         args.stall_check_shutdown_time_seconds is not None
-         and not args.host_discovery_script, "A13"),
-    ]
-    return [f"{flag} (ROADMAP {item})" for flag, on, item in given if on]
 
 
 def apply_config_file(path: str, parser: argparse.ArgumentParser,
@@ -536,6 +525,7 @@ def launch_static(np: int, host_spec: str, command: List[str],
     from horovod_tpu_torch.runner.kv_ha import start_control_plane
     job_secret = secret_mod.job_secret_key()
     rdv = start_control_plane(job_secret.encode())
+    nkv = None
     try:
         ip = coordinator_ip or _local_ip()
         remote_hosts = sorted({s.hostname for s in slots
@@ -562,6 +552,10 @@ def launch_static(np: int, host_spec: str, command: List[str],
             C.HOROVOD_CONTROLLER: CONTROLLER,
             secret_mod.SECRET_ENV: job_secret,
         })
+        nkv = _start_native_kv()
+        if nkv is not None:
+            base_env[C.HOROVOD_NATIVE_KV_ADDR] = ip
+            base_env[C.HOROVOD_NATIVE_KV_PORT] = str(nkv.port)
         # One host: the launcher picks the torch.distributed coordinator
         # (rank 0 binds it). Across hosts rank 0 picks a port on its own
         # host and publishes it through the KV (core/topology.py).
@@ -589,11 +583,10 @@ def launch_static(np: int, host_spec: str, command: List[str],
             for w in workers:
                 w.terminate()
     finally:
-        # The workers' perfscope summaries live only in this KV: write
-        # them out before it goes (HOROVOD_FLIGHT_DIR, when set).
-        from horovod_tpu_torch.profiler import perfscope
-        perfscope.persist_kv_summaries(rdv)
+        persist_job_records(rdv)
         rdv.stop()
+        if nkv is not None:
+            nkv.stop()
     bad = [(i, c) for i, c in enumerate(codes) if c != 0]
     if bad:
         print(f"{PROG}: workers failed: {bad}", file=sys.stderr)
@@ -607,6 +600,39 @@ def launch_static(np: int, host_spec: str, command: List[str],
             return 128 - signaled[0]
         return 128 + signal.SIGTERM
     return 0
+
+
+def _start_native_kv():
+    """The native KV/coordination server (native/) the consistency check
+    agrees through, with the launcher's version published in it; None
+    where the library does not build (the workers then run unchecked)."""
+    try:
+        from horovod_tpu_torch import native
+        if not native.available():
+            return None
+        nkv = native.NativeKVServer()
+    except Exception:
+        return None
+    try:
+        from horovod_tpu_torch.core import consistency
+        c = native.NativeKVClient("127.0.0.1", nkv.port)
+        c.put(consistency.LAUNCHER_VERSION_KEY,
+              consistency.version_string().encode())
+        c.close()
+    except Exception:
+        pass
+    return nkv
+
+
+def persist_job_records(rdv) -> None:
+    """Write what the workers pushed to the rendezvous KV and what lives
+    nowhere else once it stops, into HOROVOD_FLIGHT_DIR when set: the
+    flight-recorder tails, the perfscope summaries and the trace spans."""
+    from horovod_tpu_torch.observability import flight, tracing
+    from horovod_tpu_torch.profiler import perfscope
+    flight.persist_kv_tails(rdv)
+    perfscope.persist_kv_summaries(rdv)
+    tracing.persist_kv_spans(rdv)
 
 
 def check_build() -> int:
@@ -663,10 +689,6 @@ def run_commandline(argv: Optional[List[str]] = None) -> int:
             args.hosts = None
     if args.check_build:
         return check_build()
-    unported = unported_flags(args)
-    if unported:
-        raise HorovodError(
-            f"{PROG}: not ported to PyTorch yet: {', '.join(unported)}")
     # controller aliases → --launcher (an alias may not contradict an
     # explicit --launcher)
     alias = ("mpi" if args.use_mpi else "jsrun" if args.use_jsrun

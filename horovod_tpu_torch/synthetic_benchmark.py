@@ -151,6 +151,7 @@ def run_bench(args, quiet: bool = False) -> float:
               f"{args.dtype}, {_device_name(dev)}")
         print(f"World: {k} rank(s) joined over {topology.rendezvous()} "
               f"({dist.get_backend()})")
+        print(f"Control plane: {json.dumps(topology.control_plane())}")
     losses = [train_step(model, opt, batch, group)
               for _ in range(args.num_warmup_batches)]
     finite = bool(torch.stack(losses).isfinite().all()) if losses else True

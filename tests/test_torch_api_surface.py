@@ -173,11 +173,6 @@ EXCEPTED = {
     "ensure_jax_api": "JAX API drift shim",
     "DistributedGradientTransform": "optax only",
     "HorovodTpuError": "the port's base class is HorovodError",
-    "metrics": "ROADMAP A13 (observability)",
-    "metrics_text": "ROADMAP A13",
-    "bucket_overlap_stats": "ROADMAP A13",
-    "CollectiveDivergenceError": "ROADMAP A13 (core/consistency.py)",
-    "VersionMismatchError": "ROADMAP A13 (the consistency check raises it)",
 }
 # Imports of the two JAX modules, not part of the Horovod API.
 NOT_API = {"annotations", "Any", "Iterable", "Optional", "Tuple"}

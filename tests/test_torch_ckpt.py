@@ -18,10 +18,10 @@ it raises ValueError "No cast function available": horovod_tpu's
 assemble_leaf assigns the '<V2' shard into an ml_dtypes array), and the
 bytes decode to the JAX array bit for bit.
 
-Not here, with their owners: serving from a checkpoint root (A12), the
-stall watchdog's restore grace and hvddoctor's [ckpt] section (A13),
-and re-sharding onto a mesh (A11; the port's `reshard` raises naming
-it).
+Not here, with their owners: serving from a checkpoint root (A12),
+hvddoctor's [ckpt] section (A13 part 2), and re-sharding onto a mesh
+(A11; the port's `reshard` raises naming it). The stall watchdog's
+restore grace is held in tests/test_torch_control_plane.py.
 """
 
 import json

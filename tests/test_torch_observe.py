@@ -120,14 +120,23 @@ def test_bucketed_allreduce_spans_each_bucket(world, tmp_path):
 
 
 def test_no_timeline_and_perfscope_off_read_no_clock(world, monkeypatch):
+    """With no timeline, HOROVOD_PERFSCOPE=0 and HOROVOD_METRICS=0 (the
+    metrics registry also times each call, on by default as in the JAX
+    package) a collective reads no clock."""
+    from horovod_tpu_torch.observability import metrics
     world.setenv("HOROVOD_PERFSCOPE", "0")
-    hvd.init(device="cpu")
-    calls = []
-    real = time.perf_counter
-    monkeypatch.setattr(collectives.time, "perf_counter",
-                        lambda: calls.append(1) or real())
-    hvd.allreduce(X)
-    assert calls == []
+    world.setenv("HOROVOD_METRICS", "0")
+    metrics.reset_for_tests()
+    try:
+        hvd.init(device="cpu")
+        calls = []
+        real = time.perf_counter
+        monkeypatch.setattr(collectives.time, "perf_counter",
+                            lambda: calls.append(1) or real())
+        hvd.allreduce(X)
+        assert calls == []
+    finally:
+        metrics.reset_for_tests()  # the next test reads the env anew
 
 
 def _train(opt, model, passes):
@@ -281,7 +290,13 @@ def test_launched_run_leaves_trace_and_summaries(tmp_path):
     want = [f"bucketed_allreduce/b{i}" for i in range(n_buckets)]
     assert sorted(s for s in spans if "/b" in s) == sorted(want * 3)
     files = sorted(p.name for p in flight.iterdir())
-    assert files == ["perf-rank-0.r0.json", "perf-rank-1.r0.json"]
+    assert [f for f in files if f.startswith("perf-")] == [
+        "perf-rank-0.r0.json", "perf-rank-1.r0.json"]
+    # the flight recorder's exit dumps and KV tails and the trace spans
+    # land beside them
+    assert {"0.json", "1.json", "kv-tail-rank-0.r0.json",
+            "kv-tail-rank-1.r0.json", "trace-kv-rank-0.r0.json",
+            "trace-kv-rank-1.r0.json"} <= set(files), files
     for r in (0, 1):
         body = json.load(open(flight / f"perf-rank-{r}.r0.json"))
         assert body["rank"] == r and body["size"] == 2

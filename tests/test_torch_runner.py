@@ -439,8 +439,10 @@ def test_worker_env_names_match_jax():
     (["--stall-check-warning-time-seconds", "5"], "A13"),
 ])
 def test_unported_flags_raise_naming_their_item(flags, item):
-    """A13's flags are refused naming their item. A10's (elastic mode)
-    are ported and accepted: with a discovery script the job goes to
+    """Every flag that once named its unported item is accepted now.
+    A13's (the stall inspector) ride a static launch and set the
+    workers' HOROVOD_STALL_* knobs as the JAX launcher's args_to_env
+    does. A10's (elastic mode): with a discovery script the job goes to
     run_elastic with the flag's value, without one the elastic-only
     flags ride a static launch, as the JAX launcher's do."""
     with mock.patch.object(tlaunch, "launch_static",
@@ -448,9 +450,16 @@ def test_unported_flags_raise_naming_their_item(flags, item):
             mock.patch("horovod_tpu_torch.elastic.driver.run_elastic",
                        return_value=0) as rel:
         if item == "A13":
-            with pytest.raises(HorovodError, match=f"ROADMAP {item}"):
-                tlaunch.run_commandline(["-np", "1", *flags, "--", "true"])
-            assert not ls.called and not rel.called
+            assert tlaunch.run_commandline(
+                ["-np", "1", *flags, "--", "true"]) == 0
+            assert ls.called and not rel.called
+            env = ls.call_args[0][3]
+            want = jlaunch.args_to_env(jlaunch.build_parser().parse_args(
+                ["-np", "1", *flags, "true"]))
+            for k in (TC.HOROVOD_STALL_CHECK_DISABLE,
+                      TC.HOROVOD_STALL_CHECK_TIME_SECONDS):
+                assert env.get(k) == want.get(k), k
+            assert any(k.startswith("HOROVOD_STALL") for k in env)
             return
         assert tlaunch.run_commandline(
             ["-np", "1", *flags, "--", "true"]) == 0
@@ -480,12 +489,14 @@ def test_unported_flags_raise_naming_their_item(flags, item):
 def test_stall_shutdown_flag_bounds_elastic_collectives_only():
     """--stall-check-shutdown-time-seconds reaches the workers'
     HOROVOD_STALL_SHUTDOWN_TIME_SECONDS in elastic mode (their process
-    group's timeout); outside it the stall inspector is A13's."""
+    group's timeout) and, now that the stall watchdog is ported, in a
+    static launch too, where it bounds every collective wait."""
     flag = ["--stall-check-shutdown-time-seconds", "20"]
-    with mock.patch.object(tlaunch, "launch_static") as ls:
-        with pytest.raises(HorovodError, match="ROADMAP A13"):
-            tlaunch.run_commandline(["-np", "1", *flag, "--", "true"])
-    assert not ls.called
+    with mock.patch.object(tlaunch, "launch_static",
+                           return_value=0) as ls:
+        assert tlaunch.run_commandline(
+            ["-np", "1", *flag, "--", "true"]) == 0
+    assert ls.call_args[0][3][TC.HOROVOD_STALL_SHUTDOWN_TIME_SECONDS] == "20"
     with mock.patch("horovod_tpu_torch.elastic.driver.run_elastic",
                     return_value=0) as rel:
         assert tlaunch.run_commandline(
@@ -604,18 +615,38 @@ def test_ported_flags_reach_launch_static():
 
 
 def test_replicated_control_plane_and_failover_are_refused(monkeypatch):
+    """Once refused, now ported: HOROVOD_KV_REPLICAS=3 starts the
+    replicated control plane (three replica processes, a started
+    primary) whose worker env names every replica, a client given more
+    than one endpoint fails over to the one that answers, and 1 still
+    gives the plain server."""
     monkeypatch.setenv(tkv_ha.HOROVOD_KV_REPLICAS, "3")
-    with pytest.raises(HorovodError, match="A13"):
-        tkv_ha.start_control_plane(b"k")
+    cp = tkv_ha.start_control_plane(b"k")
+    try:
+        assert isinstance(cp, tkv_ha.HAControlPlane) and cp.port > 0
+        env = cp.worker_env("127.0.0.1")
+        eps = env[trdv.HOROVOD_RENDEZVOUS_ADDRS].split(",")
+        assert len(eps) == 3 and env[TC.HOROVOD_RENDEZVOUS_PORT] == \
+            str(cp.port)
+        cp.put("s", "k", b"v")
+        assert cp.get("s", "k") == b"v"
+    finally:
+        cp.stop()
     monkeypatch.setenv(tkv_ha.HOROVOD_KV_REPLICAS, "1")
     rdv = tkv_ha.start_control_plane(b"k")
     try:
         assert isinstance(rdv, trdv.RendezvousServer) and rdv.port > 0
+        # A dead first endpoint: the client rotates to the live one.
+        monkeypatch.setenv(trdv.HOROVOD_RENDEZVOUS_ADDRS,
+                           f"127.0.0.1:1,127.0.0.1:{rdv.port}")
+        c = trdv.KVClient("127.0.0.1", 1, secret=b"k",
+                          retry_policy=tres.RetryPolicy(
+                              max_attempts=1))
+        assert len(c.endpoints) == 2
+        c.put("s", "k", b"v")
+        assert rdv.get("s", "k") == b"v" and c.failovers >= 1
     finally:
         rdv.stop()
-    monkeypatch.setenv(trdv.HOROVOD_RENDEZVOUS_ADDRS, "127.0.0.1:1,h:2")
-    with pytest.raises(HorovodError, match="A13"):
-        trdv.KVClient("127.0.0.1", 1)
 
 
 def test_check_build_reports_the_port(capsys):

@@ -176,7 +176,15 @@ def test_package_imports_no_jax_at_runtime():
             "horovod_tpu_torch.parallel.ring_attention, "
             "horovod_tpu_torch.parallel.ulysses, "
             "horovod_tpu_torch.models.transformer, "
-            "horovod_tpu_torch.transformer_lm;"
+            "horovod_tpu_torch.transformer_lm, "
+            "horovod_tpu_torch.native, "
+            "horovod_tpu_torch.observability.metrics, "
+            "horovod_tpu_torch.observability.export, "
+            "horovod_tpu_torch.observability.flight, "
+            "horovod_tpu_torch.observability.tracing, "
+            "horovod_tpu_torch.testing.faults, "
+            "horovod_tpu_torch.core.consistency, "
+            "horovod_tpu_torch.analysis.verifier;"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'horovod_tpu', 'optax')];"
             "print(bad); sys.exit(1 if bad else 0)")
