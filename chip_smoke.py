@@ -219,6 +219,31 @@ Phases, each fatal on failure:
      STALL_WINDOW_S + STALL_MARGIN_S of the step's dispatch, and each
      rank's flight records name the bucketed all-reduce; with one card
      it says so.
+ 14. serving, the record readers and the data service — (a) the
+     flagship LM (seed-0 weights, bf16, attn="flash") in
+     serve/engine.py's InferenceEngine: one CUDA graph per bucket (1, 2,
+     4, 8), the capture seconds of each; per bucket the device ms of a
+     replay against the eager forward of the same padded batch, kernel
+     4's launches in a replay from the profiler's trace (12, all on the
+     Hopper instance; the wrapper's count does not see replays), the
+     replayed logits against the eager forward and a request's logits
+     beside 7 padding rows against it alone (TOL_BF16), no capture
+     after warm-up; (b) `python -m horovod_tpu_torch.serve` with one
+     replica per card (at most 2) restored params-only from (a)'s
+     checkpoint root, 64 requests of 1024 tokens from 4 client threads,
+     each response against (a)'s engine (TOL_BF16), p50, p99 and
+     requests/s, then the doctor's [serve] section and joined request
+     traces; with two or more cards one replica is SIGKILLed under load
+     and the doctor names it, with one card it says so; (c) the phase-4
+     ResNet-50 step under hvdwatch, clean (zero anomalies) and with a
+     WATCH_FAULT_MS latency fault on 3 steps (the step-time detector
+     fires, the flight recorder holds the anomaly, the on-demand
+     capture holds kernels 1 and 2), and hvdtop's snapshot of a
+     `runner.launch -np 1` benchmark showing rank 0's step time; (d) the
+     phase-4 batch and three more through two DataWorkers,
+     DataServiceClient and DeviceFeed into the same step: the losses
+     equal the same batches fed in process bit for bit, and the
+     input_wait share.
 Then the `kernels` JSON line, the card's name and power limit, and last
 {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
 
@@ -3505,6 +3530,730 @@ def observability_path() -> dict:
     return out
 
 
+# ------------------------------------------------------- phase 14: serving
+
+SERVE_BUCKETS = (1, 2, 4, 8)
+SERVE_REQUESTS = 64
+SERVE_CLIENTS = 4
+SERVE_KILL_AFTER = 16       # (b), two or more cards: responses before
+                            # the SIGKILL
+WATCH_FAULT_MS = 1500       # (c): the latency injected into 3 steps, many
+                            # times the ResNet step's 1.2-2.8x spread
+WATCH_STEPS = 24            # (c): steps of each run; the fault hits
+WATCH_FAULT_AFTER = 12      # steps 13-15
+
+
+def serve_infer(model, tokens):
+    """The served function: the last position's logits in f32 (a
+    response is V·4 bytes, not S·V·2)."""
+    return model(tokens.long())[:, -1, :].float()
+
+
+def _serve_cfg(over=None):
+    """The served model: the flagship LM, bf16, attn="flash". `over`
+    (TransformerConfig fields, dtype by name) shrinks it for a rehearsal
+    on the host; main() passes none."""
+    import torch
+    from horovod_tpu_torch import transformer_lm as lm
+    from horovod_tpu_torch.models import transformer as tfm
+    kw = dict(lm.FLAGSHIP, attn="flash", dtype=torch.bfloat16)
+    kw.update(over or {})
+    if isinstance(kw["dtype"], str):
+        kw["dtype"] = getattr(torch, kw["dtype"])
+    return tfm.TransformerConfig(**kw)
+
+
+def _rel(got, ref) -> float:
+    import numpy as np
+    got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
+    return float(np.max(np.abs(got - ref)) / max(np.max(np.abs(ref)), 1e-30))
+
+
+def _flash_fwd_names(names):
+    """(Hopper, simple) instance launches of kernel 4 among kernel names."""
+    hop = sum("flash::fwd_hopper" in n for n in names)
+    simple = sum("flash::fwd_kernel" in n for n in names)
+    return hop, simple
+
+
+def _replays(events, gap_us: float = 5000.0):
+    """Kernel names of a trace of replays made apart in time, one list
+    a replay (split where the card idled for `gap_us`)."""
+    out, last = [], None
+    for name, start, end in sorted(events, key=lambda e: e[1]):
+        if last is None or start - last > gap_us:
+            out.append([])
+        out[-1].append(name)
+        last = end if last is None else max(last, end)
+    return out
+
+
+def serving_in_process(tmp: str) -> dict:
+    """Phase 14 (a): the flagship LM (seed-0 weights, bf16, attn="flash")
+    in an InferenceEngine on the card, one CUDA graph per bucket. Writes
+    a params-only checkpoint root of the weights, the 64 requests' tokens
+    and their logits from this engine into `tmp` for (b)."""
+    import gc
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from horovod_tpu_torch import ckpt
+    from horovod_tpu_torch.models import transformer as tfm
+    from horovod_tpu_torch.profiler import device_profile
+    from horovod_tpu_torch.serve.engine import InferenceEngine
+
+    dev = torch.device("cuda", 0)
+    cfg = _serve_cfg()
+    S, V = cfg.max_seq, cfg.vocab
+    model = tfm.TransformerLM(cfg, seed=0, device=dev)
+    eng = InferenceEngine(serve_infer, model, name="flagship", device=dev)
+    reset_counters()
+    t0 = time.perf_counter()
+    eng.warmup((S,), np.int32, SERVE_BUCKETS)
+    warm_s = time.perf_counter() - t0
+    capture_calls = read_counters()["attn_fwd"]
+    cap_s = eng.capture_seconds()
+    need(eng.compiles == len(SERVE_BUCKETS)
+         and sorted(cap_s) == list(SERVE_BUCKETS),
+         f"(a): {eng.compiles} graphs for buckets {sorted(cap_s)}")
+    print(f"(a) engine: L{cfg.n_layers} D{cfg.d_model} F{cfg.d_ff} "
+          f"H{cfg.n_heads} S{S} V{V} bf16 attn=flash; {eng.compiles} "
+          f"graphs in {warm_s:.1f} s, capture s per bucket "
+          + json.dumps({b: round(s, 3) for b, s in sorted(cap_s.items())})
+          + f"; kernel 4's wrapper called {capture_calls} times "
+          f"(warm-up and capture, {cfg.n_layers} a forward)")
+    tokens = np.random.default_rng(0).integers(
+        0, V, (SERVE_REQUESTS, S)).astype(np.int32)
+    buckets = {}
+    for b in SERVE_BUCKETS:
+        g = eng.compile_for((b, S), np.int32)
+        x = tokens[:b]
+        reset_counters()
+        got = eng.infer(x)
+        replay_calls = read_counters()["attn_fwd"]
+        with torch.inference_mode():
+            ref = serve_infer(model, torch.as_tensor(x, device=dev)) \
+                .cpu().numpy()
+        err = _rel(got, ref)
+
+        def eager():
+            with torch.inference_mode():
+                serve_infer(model, g.static_in)
+
+        replay_ms = device_ms(g.graph.replay, iters=5)
+        eager_ms = device_ms(eager, iters=5)
+        replay_wall = time_ms(g.graph.replay, iters=5)
+        eager_wall = time_ms(eager, iters=5)
+        # A trace of the whole script's process can come back with one
+        # layer's records missing (seen on an H100; as in device_ms): four
+        # replays 20 ms apart in one trace, split at the gaps, and the
+        # fullest replay counts.
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(4):
+                torch.cuda.synchronize()
+                time.sleep(0.02)
+                g.graph.replay()
+            torch.cuda.synchronize()
+        traces = _replays(device_profile.kernel_events(prof))
+        names = max(traces, key=len)
+        hop, simple = _flash_fwd_names(names)
+        buckets[b] = dict(max_rel_err=err, replay_ms=replay_ms,
+                          eager_ms=eager_ms, replay_wall_ms=replay_wall,
+                          eager_wall_ms=eager_wall, kernels=len(names),
+                          kernels_per_replay=[len(t) for t in traces],
+                          k4_hopper=hop, k4_simple=simple,
+                          capture_s=cap_s[b], wrapper_calls=replay_calls)
+        print(f"(a) bucket {b}: replay {replay_ms:.3f} ms device "
+              f"({replay_wall:.3f} ms on the stream), eager "
+              f"{eager_ms:.3f} ms device ({eager_wall:.3f} ms on the "
+              f"stream); kernels in 4 traced replays "
+              f"{[len(t) for t in traces]}, in the fullest kernel 4 "
+              f"{hop} on the Hopper instance, {simple} on the simple one; "
+              f"logits against the eager forward {err:.3g} (tolerance "
+              f"{TOL_BF16})")
+        need(err <= TOL_BF16, f"(a): bucket {b}'s replay disagrees with "
+             f"the eager forward")
+        need(hop == cfg.n_layers and simple == 0,
+             f"(a): bucket {b}'s replay ran kernel 4 {hop} times on the "
+             f"Hopper instance and {simple} on the simple one, not "
+             f"{cfg.n_layers} and 0")
+        need(replay_calls == 0, "(a): a replay went through kernel 4's "
+             "wrapper (it should replay the captured launch)")
+    # Padding never changes a real row.
+    alone = eng.infer(tokens[:1])[0]
+    padded = np.concatenate([tokens[:1], np.zeros((7, S), np.int32)])
+    pad_err = _rel(eng.infer(padded)[0], alone)
+    full = eng.infer(tokens[:8])
+    row_err = max(_rel(full[i], eng.infer(tokens[i:i + 1])[0])
+                  for i in range(8))
+    print(f"(a) padding: a request at bucket 8 beside 7 zero rows against "
+          f"it alone at bucket 1 {pad_err:.3g}; 8 requests at bucket 8 "
+          f"against each alone, largest {row_err:.3g} (tolerance "
+          f"{TOL_BF16})")
+    need(pad_err <= TOL_BF16 and row_err <= TOL_BF16,
+         "(a): a padded row changed a real row's logits")
+    ref = np.concatenate([eng.infer(tokens[i:i + 8])
+                          for i in range(0, SERVE_REQUESTS, 8)])
+    need(eng.compiles == len(SERVE_BUCKETS), f"(a): {eng.compiles} "
+         f"captures after warm-up, not {len(SERVE_BUCKETS)}")
+    need(bool(np.isfinite(ref).all()) and ref.shape == (SERVE_REQUESTS, V),
+         "(a): non-finite or misshapen logits")
+    np.save(os.path.join(tmp, "tokens.npy"), tokens)
+    np.save(os.path.join(tmp, "ref.npy"), ref)
+    t0 = time.perf_counter()
+    saver = ckpt.AsyncCheckpointer(os.path.join(tmp, "ckpt"))
+    need(saver.save(0, {"params": model.state_dict()}, block=True),
+         "(a): the checkpoint save was refused")
+    saver.close()
+    ckpt_s = time.perf_counter() - t0
+    print(f"(a) params-only checkpoint root of the weights in "
+          f"{ckpt_s:.1f} s")
+    out = dict(capture_s=cap_s, warmup_s=warm_s, buckets=buckets,
+               pad_err=pad_err, row_err=row_err, compiles=eng.compiles,
+               capture_wrapper_calls=capture_calls, ckpt_s=ckpt_s)
+    del eng, model, g
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def serving_replica(d: str, over=None, device=None) -> int:
+    """Phase 14 (b)'s replica command (run by `python -m
+    horovod_tpu_torch.serve`): the flagship LM restored params-only from
+    (a)'s checkpoint root in `d` into a model of other weights, every
+    bucket captured, served until the launcher drains it. `device` None
+    is the engine's default, the card of this replica's local rank;
+    "by-rank" is the card of its global rank; "cpu" the host (with `over`
+    shrinking the model, a rehearsal off the card)."""
+    import numpy as np
+    import torch
+    from horovod_tpu_torch.models import transformer as tfm
+    from horovod_tpu_torch.serve.engine import InferenceEngine, serve_device
+    from horovod_tpu_torch.serve.replica import serve_replica
+
+    host = os.environ.get("HOROVOD_HOSTNAME", "localhost")
+    os.makedirs(os.path.join(d, "pids"), exist_ok=True)
+    with open(os.path.join(d, "pids", host), "w") as f:
+        f.write(str(os.getpid()))
+    if device == "by-rank":
+        device = torch.device("cuda", int(os.environ["HOROVOD_RANK"])
+                              % torch.cuda.device_count())
+    cfg = _serve_cfg(over)
+    t0 = time.perf_counter()
+    model = tfm.TransformerLM(cfg, seed=1, device=serve_device(device))
+    eng = InferenceEngine.from_checkpoint(os.path.join(d, "ckpt"),
+                                          serve_infer, model,
+                                          name="flagship", device=device)
+    dev = eng.device
+    eng.warmup((cfg.max_seq,), np.int32, SERVE_BUCKETS)
+    print(f"SERVE14_READY host={host} device={dev} graphs={eng.compiles} "
+          f"seconds={time.perf_counter() - t0:.1f}", flush=True)
+    return serve_replica(eng)
+
+
+def _pct(xs, q):
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(len(xs) * q))]
+
+
+def serving_launched(tmp: str, over=None, cpu: bool = False) -> int:
+    """Phase 14 (b), run by `run_bounded` in a process of its own: `python
+    -m horovod_tpu_torch.serve` with one replica per card (at most 2)
+    over (a)'s checkpoint, 64 requests of S tokens from 4 client threads
+    held against (a)'s logits, then the doctor over the flight
+    directory. With two or more replicas one is SIGKILLed under load.
+    Writes `tmp`/launched.json. `over` and `cpu` (two replicas on the
+    host) are for a rehearsal off the card; main() passes neither."""
+    import shutil
+    import signal
+    import threading
+    import numpy as np
+    import torch
+    from horovod_tpu_torch.serve.frontend import (ServeClient,
+                                                  wait_for_port_file)
+
+    py = sys.executable
+    slots = 2 if cpu else min(torch.cuda.device_count(), 2)
+    # Each replica stands as a host of one slot (so the elastic driver
+    # blacklists only a killed one), so each is local rank 0: with one
+    # card the engine's default (cuda:<local rank>) places it; with two,
+    # each takes the card of its global rank.
+    device = "cpu" if cpu else "by-rank" if slots >= 2 else None
+    tokens = np.load(os.path.join(tmp, "tokens.npy"))
+    ref = np.load(os.path.join(tmp, "ref.npy"))
+    hosts = os.path.join(tmp, "hosts.txt")
+    with open(hosts, "w") as f:
+        f.write("\n".join(["localhost:1", "127.0.0.1:1"][:slots]) + "\n")
+    script = os.path.join(tmp, "discover.sh")
+    with open(script, "w") as f:
+        f.write(f"#!/bin/sh\ncat {hosts}\n")
+    os.chmod(script, 0o755)
+    flight = os.path.abspath(os.path.join("chiprun_out", "serve14",
+                                          "flight"))
+    shutil.rmtree(flight, ignore_errors=True)  # this run's records only
+    os.makedirs(flight)
+    port_file = os.path.join(tmp, "serve.port")
+    secret = "5e" * 32
+    env = dict(os.environ, HOROVOD_SECRET_KEY=secret,
+               HOROVOD_SERVE_PORT_FILE=port_file,
+               HOROVOD_FLIGHT_DIR=flight, HOROVOD_TRACE_SAMPLE="1",
+               HOROVOD_SERVE_MAX_BATCH=str(SERVE_BUCKETS[-1]),
+               HOROVOD_SERVE_BUCKETS=",".join(map(str, SERVE_BUCKETS)),
+               HOROVOD_SERVE_MAX_WAIT_MS="5",
+               HOROVOD_SERVE_REPLICA_TIMEOUT="60",
+               HOROVOD_METRICS_PUSH_INTERVAL="0.5")
+    cmd = [py, "-m", "horovod_tpu_torch.serve", "--host-discovery-script",
+           script, "--slots-per-host", "1", "--min-np", "1",
+           "--elastic-timeout", "120", "--blacklist-cooldown-range", "300",
+           "600", "--", py, "-c",
+           "import sys, chip_smoke; sys.exit(chip_smoke.serving_replica("
+           f"{tmp!r}, {over!r}, {device!r}))"]
+    proc = subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    lines = []
+    reader = threading.Thread(target=lambda: lines.extend(proc.stdout),
+                              daemon=True)
+    reader.start()
+    out = {"replicas": slots, "victim": None}
+    lock = threading.Lock()
+    lat, errs, fails, done = {}, {}, [], [0]
+    t_up = time.perf_counter()
+    try:
+        port = wait_for_port_file(port_file, timeout=120)
+        addr = ("127.0.0.1", port)
+        deadline = time.monotonic() + 240
+        while sum("SERVE14_READY" in ln for ln in lines) < slots:
+            need(proc.poll() is None and time.monotonic() < deadline,
+                 "(b): the replicas did not come up:\n"
+                 + "".join(lines)[-3000:])
+            time.sleep(0.2)
+        out["startup_s"] = time.perf_counter() - t_up
+        out["devices"] = sorted(
+            ln.split("SERVE14_READY")[1].split(" device=")[1].split()[0]
+            for ln in lines if "SERVE14_READY" in ln)
+        kill_at = SERVE_KILL_AFTER if slots >= 2 else None
+
+        def client(tid):
+            c = ServeClient(addr, secret=secret.encode())
+            try:
+                for i in range(tid, SERVE_REQUESTS, SERVE_CLIENTS):
+                    t0 = time.perf_counter()
+                    try:
+                        got = c.infer(tokens[i])
+                    except Exception as e:  # recorded, failed below
+                        with lock:
+                            fails.append((i, repr(e)))
+                        continue
+                    dt = time.perf_counter() - t0
+                    with lock:
+                        lat[i] = dt
+                        errs[i] = _rel(got, ref[i])
+                        done[0] += 1
+            finally:
+                c.close()
+
+        threads = [threading.Thread(target=client, args=(t,), daemon=True)
+                   for t in range(SERVE_CLIENTS)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        if kill_at is not None:
+            while done[0] < kill_at and any(t.is_alive() for t in threads):
+                time.sleep(0.01)
+            with open(os.path.join(tmp, "pids", "127.0.0.1")) as f:
+                out["victim"] = int(f.read().strip())
+            os.kill(out["victim"], signal.SIGKILL)
+            with open(hosts, "w") as f:
+                f.write("localhost:1\n")
+        for t in threads:
+            t.join(timeout=300)
+        wall = time.perf_counter() - t0
+        need(not any(t.is_alive() for t in threads),
+             "(b): a client thread hung")
+        if out["victim"] is not None:
+            # The pool finds a dead replica at its next submit or when
+            # its heartbeat goes stale (pool.STALE_HEARTBEAT_S): wait
+            # for that before the drain.
+            dead = f"pid={out['victim']}"
+            end = time.monotonic() + 60
+            while not any("died" in ln and dead in ln for ln in lines):
+                need(time.monotonic() < end, "(b): the pool never marked "
+                     "the killed replica dead")
+                time.sleep(0.2)
+        probe = ServeClient(addr, secret=secret.encode())
+        out["frontend_stats"] = probe.stats()
+        probe.shutdown()
+        probe.close()
+        rc = proc.wait(timeout=120)
+    finally:
+        if proc.poll() is None:
+            # SIGTERM first: the launcher then ends its replicas, which
+            # run in sessions of their own.
+            proc.terminate()
+            try:
+                proc.wait(30)
+            except subprocess.TimeoutExpired:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait(30)
+        reader.join(30)
+    text = "".join(lines)
+    with open(os.path.join("chiprun_out", "serve14", "launcher.log"),
+              "w") as f:
+        f.write(text)
+    need(rc == 0, f"(b): the serving launcher exited {rc}:\n{text[-3000:]}")
+    need(not fails and len(lat) == SERVE_REQUESTS,
+         f"(b): {len(lat)} of {SERVE_REQUESTS} requests answered; "
+         f"failures {fails[:4]}")
+    ms = [v * 1e3 for v in lat.values()]
+    out.update(p50_ms=_pct(ms, 0.5), p99_ms=_pct(ms, 0.99),
+               requests_per_s=SERVE_REQUESTS / wall,
+               max_rel_err=max(errs.values()), wall_s=wall)
+    print(f"(b) launched serving: {slots} replica(s) on "
+          f"{', '.join(out['devices'])}, up in "
+          f"{out['startup_s']:.1f} s; {SERVE_REQUESTS} requests of "
+          f"{tokens.shape[1]} tokens from {SERVE_CLIENTS} clients: p50 "
+          f"{out['p50_ms']:.1f} ms, p99 {out['p99_ms']:.1f} ms, "
+          f"{out['requests_per_s']:.2f} requests/s; largest error "
+          f"against (a)'s engine {out['max_rel_err']:.3g} (tolerance "
+          f"{TOL_BF16}); frontend {out['frontend_stats']}")
+    need(out["max_rel_err"] <= TOL_BF16,
+         "(b): a response disagrees with (a)'s engine")
+    rc, doc = run_bounded([py, "-m", "horovod_tpu_torch.observability.doctor",
+                           "--dir", flight], 120)
+    with open(os.path.join("chiprun_out", "serve14", "doctor.txt"),
+              "w") as f:
+        f.write(doc)
+    section = []
+    for ln in doc.splitlines():
+        if ln.startswith("[serve]") or (section and ln.strip()
+                                         and not ln.startswith("[")):
+            section.append(ln)
+        elif section:
+            break
+    print("\n".join("(b) doctor: " + ln for ln in section))
+    traces = [ln for ln in doc.splitlines()
+              if "SLOWEST request" in ln or ln.startswith("[traces]")]
+    print("\n".join("(b) doctor: " + ln for ln in traces[:3]))
+    need(rc == 0 and bool(section) and bool(traces),
+         f"(b): the doctor's report lacks [serve] or [traces]:\n"
+         f"{doc[-3000:]}")
+    if out["victim"] is not None:
+        need("SERVE REPLICA DEATH" in doc and str(out["victim"]) in doc,
+             f"(b): the doctor does not name the killed replica "
+             f"{out['victim']}")
+        print(f"(b) replica {out['victim']} SIGKILLed after "
+              f"{SERVE_KILL_AFTER} responses: every request answered, "
+              f"the doctor names it")
+    else:
+        print("(b) one card: the SIGKILL of one replica under load needs "
+              "two or more")
+    out["doctor_serve"] = section
+    with open(os.path.join(tmp, "launched.json"), "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def _service_shard(batches, shard, num_shards):
+    """(d)'s dataset: batch i of `batches` (bf16 images as int16, int64
+    labels) goes to shard i mod num_shards."""
+    for i in range(shard, len(batches), num_shards):
+        x, y = batches[i]
+        yield {"i": i, "x": x, "y": y}
+
+
+def _kernel_names(trace_dir: str) -> list:
+    names = []
+    for root, _, files in os.walk(trace_dir):
+        for fn in files:
+            if fn.endswith(".json"):
+                with open(os.path.join(root, fn)) as f:
+                    names += [e.get("name", "") for e in
+                              json.load(f).get("traceEvents", [])
+                              if e.get("cat") == "kernel"]
+    return names
+
+
+def watch_and_data(batch=32, image=224, dtype="bfloat16",
+                   device=None) -> dict:
+    """Phase 14 (c) in process and (d): the phase-4 ResNet-50 step under
+    hvdwatch, with and without a latency fault; then four batches
+    through two DataWorkers, DataServiceClient and DeviceFeed into the
+    same step, against the same batches fed in process. `device`
+    "cpu" (with a small batch and image, f32) rehearses it on the
+    host."""
+    import functools
+    import itertools
+    import shutil
+    import torch
+    import torch.distributed as dist
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import synthetic_benchmark as sb
+    from horovod_tpu_torch.data import service as ds
+    from horovod_tpu_torch.data import DeviceFeed
+    from horovod_tpu_torch.observability import flight, watch
+    from horovod_tpu_torch.profiler import device_profile, perfscope
+    from horovod_tpu_torch.runner import secret as secret_mod
+    from horovod_tpu_torch.testing import faults
+
+    dt = getattr(torch, dtype)
+    os.environ["HOROVOD_CONV_BLOCK"] = "1"
+    os.environ["HOROVOD_FUSE_CONV_BN"] = "0"
+    wdir = os.path.abspath(os.path.join("chiprun_out", "watch14"))
+    shutil.rmtree(wdir, ignore_errors=True)
+    os.makedirs(wdir)
+    cudnn = torch.backends.cudnn
+    saved = (cudnn.deterministic, cudnn.benchmark)
+    out = {}
+    hvd.init(device=device)
+    try:
+        dev, group = hvd.device(), dist.group.WORLD
+        model = sb.build("resnet50", dt, dev)
+        snap = copy.deepcopy(model.state_dict())
+        host = [tuple(t.cpu() for t in sb.make_batch(batch, image, dt, dev,
+                                                     seed=s))
+                for s in range(4)]
+        opts = []
+
+        def fresh_opt():
+            for o in opts:
+                for h in o._hooks:
+                    h.remove()
+            model.load_state_dict(snap)
+            opts.append(sb.make_optimizer(model))
+            return opts[-1]
+
+        # (c) hvdwatch: the same steps clean and with a latency fault.
+        env = {"HOROVOD_WATCH": "1", "HOROVOD_WATCH_DIR": wdir,
+               "HOROVOD_FLIGHT_DIR": wdir, "HOROVOD_WATCH_WARMUP": "8",
+               "HOROVOD_WATCH_CAPTURE_STEPS": "3",
+               "HOROVOD_WATCH_CAPTURE_SECONDS": "60"}
+        prev = {k: os.environ.get(k) for k in env}
+        os.environ.update(env)
+        runs = {}
+        try:
+            for tag in ("clean", "fault"):
+                for mod in (watch, flight, perfscope):
+                    mod.reset_for_tests()
+                w = watch.get()
+                need(isinstance(w, watch.Watcher), "(c): hvdwatch is off")
+                opt = fresh_opt()
+                spec = (f"site=data.feed.produce,kind=latency,"
+                        f"ms={WATCH_FAULT_MS},after={WATCH_FAULT_AFTER},"
+                        f"count=3")
+                faults.install(faults.FaultInjector(faults.parse_spec(spec))
+                               if tag == "fault" else None)
+                feed = DeviceFeed(itertools.cycle(host), device=dev, depth=0)
+                walls = []
+                try:
+                    for _ in range(WATCH_STEPS):
+                        t0 = time.perf_counter()
+                        sb.train_step(model, opt, next(feed), group)
+                        if dev.type == "cuda":
+                            torch.cuda.synchronize()
+                        walls.append(time.perf_counter() - t0)
+                        w.tick()
+                    # Let a triggered capture see its steps, then stop.
+                    end = time.monotonic() + 60
+                    while device_profile.capture_active() \
+                            and time.monotonic() < end:
+                        sb.train_step(model, opt, next(feed), group)
+                        w.tick()
+                finally:
+                    feed.close()
+                    faults.uninstall()
+                events = flight.get().payload("phase14")["events"]
+                anomalies = [e for e in events if e[2] == "anomaly"]
+                runs[tag] = dict(counts=w.counts(), records=w.records(),
+                                 flight_anomalies=[e[3] for e in anomalies],
+                                 step_ms=[v * 1e3 for v in walls])
+                print(f"(c) hvdwatch, {tag} run of {WATCH_STEPS} steps: "
+                      f"anomalies {w.counts()}; step ms median "
+                      f"{_median(runs[tag]['step_ms']):.1f}, largest "
+                      f"{max(runs[tag]['step_ms']):.1f}; flight "
+                      f"{[e[3] for e in anomalies]}")
+        finally:
+            for k, v in prev.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+            for mod in (watch, flight, perfscope):
+                mod.reset_for_tests()
+        need(runs["clean"]["counts"] == {},
+             f"(c): the clean run reported {runs['clean']['counts']}")
+        need(runs["fault"]["counts"].get("step_time") == 1,
+             f"(c): the step-time detector did not fire once: "
+             f"{runs['fault']['counts']}")
+        need(any("detector=step_time" in d
+                 for d in runs["fault"]["flight_anomalies"]),
+             "(c): the flight recorder holds no step_time anomaly event")
+        cap = [os.path.join(wdir, d) for d in os.listdir(wdir)
+               if d.startswith("devtrace-")]
+        names = [n for d in cap for n in _kernel_names(d)]
+        k1 = sum("cfh::fwd_hopper" in n for n in names)
+        k2 = sum("cbh::dx_hopper" in n or "cbh::dw_hopper" in n
+                 for n in names)
+        out["watch"] = dict(runs=runs, captures=[os.path.basename(d)
+                                                 for d in cap],
+                            capture_kernels=len(names), k1=k1, k2=k2)
+        print(f"(c) on-demand capture {[os.path.basename(d) for d in cap]}:"
+              f" {len(names)} kernels, kernel 1 {k1} times, kernel 2 "
+              f"{k2}")
+        if dev.type == "cuda":
+            need(len(cap) == 1 and k1 > 0 and k2 > 0,
+                 "(c): the capture does not hold kernels 1 and 2")
+
+        # (d) the data service into the same step.
+        secret = bytes.fromhex(secret_mod.make_secret_key())
+        disp = ds.DataDispatcher(expected_workers=2, secret=secret)
+        addr = ("127.0.0.1", disp.start())
+        workers = [ds.DataWorker(addr, secret=secret, poll_interval=0.02)
+                   for _ in range(2)]
+        for wk in workers:
+            wk.start()
+        try:
+            client = ds.DataServiceClient(addr, secret=secret)
+            # numpy has no bf16: the images travel as integers of
+            # their width and are viewed back on the card.
+            as_int = {2: torch.int16, 4: torch.int32}[host[0][0]
+                                                     .element_size()]
+            wire = [(x.view(as_int).numpy(), y.numpy()) for x, y in host]
+            client.register_dataset(
+                "phase14", functools.partial(_service_shard, wire))
+            cudnn.deterministic, cudnn.benchmark = True, False
+            opt = fresh_opt()
+            ps = perfscope.get()
+            ps.reset()
+            order, served = [], []
+            feed = client.device_stream("phase14", device=dev)
+            try:
+                for b in feed:
+                    order.append(b["i"])
+                    x = b["x"].view(dt)
+                    served.append(float(sb.train_step(
+                        model, opt, (x, b["y"]), group)))
+            finally:
+                feed.close()
+            summ = ps.summary()
+            opt = fresh_opt()
+            direct = [float(sb.train_step(
+                model, opt, tuple(t.to(dev) for t in host[i]), group))
+                for i in order]
+            cudnn.deterministic, cudnn.benchmark = saved
+        finally:
+            for wk in workers:
+                wk.stop()
+            disp.stop()
+        share = (summ.get("phase_fractions") or {}).get("input_wait", 0.0)
+        out["data_service"] = dict(order=order, served=served,
+                                   direct=direct, input_wait_share=share,
+                                   steps=summ.get("steps"))
+        print(f"(d) data service: 2 workers, batches {order} through "
+              f"DeviceFeed: losses {served}; fed in process {direct}; "
+              f"input_wait share {share:.4f} over {summ.get('steps')} "
+              f"recorded steps")
+        need(sorted(order) == [0, 1, 2, 3], f"(d): batches {order}")
+        need(served == direct, "(d): the service-fed losses differ from "
+             "the in-process ones")
+    finally:
+        cudnn.deterministic, cudnn.benchmark = saved
+        hvd.shutdown()
+    return out
+
+
+def top_launched(bench_extra=()) -> dict:
+    """Phase 14 (c), launched: `runner.launch -np 1` of the synthetic
+    benchmark; while it runs, hvdtop's snapshot over the launcher's `GET
+    /metrics` and KV scopes must show rank 0's step time."""
+    import signal
+    import threading
+    from horovod_tpu_torch.observability import top
+    from horovod_tpu_torch.runner import secret as secret_mod
+
+    py = sys.executable
+    base = os.path.join("chiprun_out", "top14")
+    os.makedirs(base, exist_ok=True)
+    port_file = os.path.join(base, "rdv.port")
+    if os.path.exists(port_file):
+        os.remove(port_file)
+    # The job's key, set before it starts, signs hvdtop's KV reads.
+    secret = secret_mod.make_secret_key()
+    env = dict(os.environ, HOROVOD_CONV_BLOCK="1", HOROVOD_FUSE_CONV_BN="0",
+               HOROVOD_RENDEZVOUS_PORT_FILE=port_file,
+               HOROVOD_METRICS_PUSH_INTERVAL="0.5",
+               HOROVOD_SECRET_KEY=secret)
+    cmd = [py, "-m", "horovod_tpu_torch.runner.launch", "-np", "1", py,
+           "-m", "horovod_tpu_torch.synthetic_benchmark", "--batch-size",
+           "32", "--num-iters", "4", *bench_extra]
+    root = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.Popen(cmd, cwd=root, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    chunks = []
+    reader = threading.Thread(target=lambda: chunks.append(proc.stdout.read()),
+                              daemon=True)
+    reader.start()
+    snap = {}
+    end = time.monotonic() + 300
+    saved = os.environ.get(secret_mod.SECRET_ENV)
+    os.environ[secret_mod.SECRET_ENV] = secret
+    try:
+        while proc.poll() is None and time.monotonic() < end:
+            try:
+                h, p = open(port_file).read().split(",")[0].rsplit(":", 1)
+                s = top.snapshot(h, int(p), max_ranks=2)
+                if (s.get("ranks", {}).get("0", {}).get("step_ms") or
+                        {}).get("mean", 0) > 0 and not s["errors"]:
+                    snap = s
+                    break
+            except (OSError, ValueError):
+                pass
+            time.sleep(0.5)
+        rc = proc.wait(timeout=max(1.0, end - time.monotonic()))
+    finally:
+        if saved is None:
+            os.environ.pop(secret_mod.SECRET_ENV, None)
+        else:
+            os.environ[secret_mod.SECRET_ENV] = saved
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait(30)
+        reader.join(30)
+    need(rc == 0, f"(c): the launched benchmark exited {rc}: "
+         f"{''.join(chunks)[-3000:]}")
+    need(bool(snap), "(c): hvdtop never saw rank 0's step time")
+    text = top.render(snap)
+    print("\n".join("(c) hvdtop: " + ln[:160] for ln in text.splitlines()))
+    row = snap["ranks"]["0"]
+    return dict(step_ms=row["step_ms"], steps=row.get("steps"),
+                mfu=row.get("mfu"), render=text)
+
+
+def serving_path() -> dict:
+    """Phase 14: serving, the record readers and the data service."""
+    import tempfile
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="serve14-")
+    os.makedirs(os.path.join("chiprun_out", "serve14"), exist_ok=True)
+    out = {"in_process": serving_in_process(tmp)}
+    out["in_process_s"] = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    rc, text = run_bounded(
+        [sys.executable, "-c", "import sys, chip_smoke; "
+         f"sys.exit(chip_smoke.serving_launched({tmp!r}))"], 600)
+    print("\n".join(ln for ln in text.splitlines() if ln.startswith("(b)")))
+    need(rc == 0, f"phase 14 (b) failed ({rc}):\n{text[-4000:]}")
+    with open(os.path.join(tmp, "launched.json")) as f:
+        out["launched"] = json.load(f)
+    out["launched_s"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    out.update(watch_and_data())
+    out["top"] = top_launched()
+    out["watch_data_top_s"] = time.perf_counter() - t1
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3580,6 +4329,8 @@ def main() -> int:
     lap("12 other models and the API surface")
     observability = observability_path()
     lap("13 observability and the control plane")
+    serving = serving_path()
+    lap("14 serving, the record readers and the data service")
     print(f"total: {time.perf_counter() - t0:.1f} s")
 
     src = "horovod_tpu_torch/csrc/"
@@ -3628,6 +4379,7 @@ def main() -> int:
                    "sequence_parallel_path": sp_run,
                    "other_models_path": others,
                    "observability_path": observability,
+                   "serving_path": serving,
                    "phase_s": phase_s,
                    "nvidia_smi": smi}, f, indent=1)
     print(json.dumps(line))

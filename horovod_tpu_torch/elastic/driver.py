@@ -18,9 +18,8 @@ The driver counts its rounds, resets, spawns, failures, blacklists and
 discovery failures into the launcher's metrics registry (served by the
 rendezvous server's `GET /metrics`), records its rounds and worker exits
 in the flight recorder, and at the job's end persists the workers'
-flight tails, perfscope summaries and trace spans into
-HOROVOD_FLIGHT_DIR (runner/launch.py persist_job_records; the hvdwatch
-records come with ROADMAP A13 part 2).
+flight tails, perfscope summaries, trace spans and hvdwatch records
+into HOROVOD_FLIGHT_DIR (runner/launch.py persist_job_records).
 """
 
 from __future__ import annotations

@@ -12,7 +12,10 @@ window is perfscope's `compile` phase, and each source is a COMPILE
 span on the timeline.
 
 Every C entry point returns `cudaGetLastError()` after its launches;
-`check()` raises KernelError when that is not cudaSuccess.
+`check()` raises KernelError when that is not cudaSuccess. `launch()`
+calls an entry point with its tensors' device current: a ctypes call
+runs in the current device's context, so tensors on a card that is not
+current would otherwise be read through the wrong one.
 """
 
 from __future__ import annotations
@@ -140,6 +143,15 @@ def lib(name: str) -> ctypes.CDLL:
 def check(err: int, what: str) -> None:
     if err != 0:
         raise KernelError(f"{what}: CUDA error {err} at launch")
+
+
+def launch(fn, what: str, device, *args) -> None:
+    """Call the C entry point `fn` with `device` (its tensors' card)
+    current, then `check()` what it returned."""
+    import torch
+    with torch.cuda.device(device):
+        err = fn(*args)
+    check(err, what)
 
 
 P = ctypes.c_void_p

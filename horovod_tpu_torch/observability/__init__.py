@@ -6,9 +6,11 @@ no-op shell under HOROVOD_METRICS=0) and Prometheus rendering.
 `/metrics` route serves, JSON dumps, timeline counter tracks).
 `flight`: the always-on flight recorder, dumped on a stall, a
 divergence, a fatal error, SIGUSR1 and exit. `tracing`: spans and trace
-context, a `train.step` root per step. The offline and live tools that
-read their records (doctor, top, watch, perfboard) are ROADMAP A13
-part 2.
+context, a `train.step` root per step. `watch`: the online anomaly
+detectors with triggered capture. `doctor` (offline) and `top` (live)
+read what the others record: `python -m
+horovod_tpu_torch.observability.doctor --dir D`, `python -m
+horovod_tpu_torch.observability.top --addr HOST:PORT`.
 """
 
 from horovod_tpu_torch.observability.metrics import (  # noqa: F401

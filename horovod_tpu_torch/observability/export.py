@@ -13,7 +13,8 @@ cadence:
 * refreshes this rank's flight-recorder tail and trace-span tail in the
   KV, so a SIGKILL'd worker still leaves them with the launcher (the
   perfscope summary pushes itself at step boundaries on the same
-  interval, profiler/perfscope.py).
+  interval, profiler/perfscope.py);
+* runs one hvdwatch detection pass (observability/watch.py).
 `hvd.shutdown()` stops it with one final forced flush.
 """
 
@@ -163,6 +164,15 @@ class MetricsExporter:
             try:
                 from horovod_tpu_torch.observability import tracing
                 tracing.push_tail()
+            except Exception:
+                pass
+            # hvdwatch detection pass (observability/watch.py): the
+            # detectors read the perfscope samples and registry series
+            # since the last tick, escalate capture on a trigger, and
+            # refresh this rank's `watch/` KV record.
+            try:
+                from horovod_tpu_torch.observability import watch
+                watch.on_export_tick()
             except Exception:
                 pass
 

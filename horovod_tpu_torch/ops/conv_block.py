@@ -134,9 +134,9 @@ def conv1x1_fwd_fused(x: torch.Tensor, w: torch.Tensor
         ws = torch.empty((nmb, 2, c), dtype=torch.float32, device=x.device)
         stats = torch.empty((2, c), dtype=torch.float32, device=x.device)
         fn = entry("conv1x1_fwd", "hvd_conv1x1_fwd_hopper", 5, 4)
-        err = fn(*[_ptr(t) for t in (x, w, y, ws, stats)], m, cin, c,
-                 fwd_tile(m, cin, c), _stream(x))
-        kernels.check(err, "conv1x1_fwd_fused")
+        kernels.launch(fn, "conv1x1_fwd_fused", x.device,
+                       *[_ptr(t) for t in (x, w, y, ws, stats)], m, cin, c,
+                       fwd_tile(m, cin, c), _stream(x))
         conv1x1_fwd_fused.launches += 1
         return y, stats[0], stats[1]
     wt = w.t().contiguous()  # (C, Cin): both operands load along Cin
@@ -146,9 +146,9 @@ def conv1x1_fwd_fused(x: torch.Tensor, w: torch.Tensor
     ssum = torch.empty((c,), dtype=torch.float32, device=x.device)
     ssq = torch.empty((c,), dtype=torch.float32, device=x.device)
     fn = entry("conv1x1_fwd", f"hvd_conv1x1_fwd_{suffix}", 6, 3)
-    err = fn(*[_ptr(t) for t in (x, wt, y, ws, ssum, ssq)], m, cin, c,
-             _stream(x))
-    kernels.check(err, "conv1x1_fwd_fused")
+    kernels.launch(fn, "conv1x1_fwd_fused", x.device,
+                   *[_ptr(t) for t in (x, wt, y, ws, ssum, ssq)], m, cin, c,
+                   _stream(x))
     conv1x1_fwd_fused.launches += 1
     return y, ssum, ssq
 

@@ -227,11 +227,11 @@ def fold_rows_cuda(lib_name: str, fn_name: str, scale, bias, inv, dbeta,
     out = torch.empty((5, c), dtype=torch.float32, device=inv.device)
     fn = entry(lib_name, fn_name, 8, 1, (ctypes.c_float, kernels.I,
                                          kernels.I))
-    err = fn(*[_ptr(r) for r in params + rows],
-             *[ctypes.c_void_p(None if r is None else r.data_ptr())
-               for r in opt], _ptr(out), c, 1.0 / count, int(relu),
-             int(scale.dtype == torch.bfloat16), _stream(inv))
-    kernels.check(err, fn_name)
+    kernels.launch(fn, fn_name, inv.device,
+                   *[_ptr(r) for r in params + rows],
+                   *[ctypes.c_void_p(None if r is None else r.data_ptr())
+                     for r in opt], _ptr(out), c, 1.0 / count, int(relu),
+                   int(scale.dtype == torch.bfloat16), _stream(inv))
     return out
 
 
@@ -265,9 +265,9 @@ def launch_bwd(lib_name: str, fn_name: str, dz, y, x_in, w,
         ints = (m, cin, c, splits, chunk)
     fn = entry(lib_name, f"{fn_name}_{suffix}", 4 + len(rows) + 3,
                len(ints))
-    err = fn(*[_ptr(t) for t in (dz, y, x_in, w, *rows, dx, ws, dw)],
-             *ints, _stream(dz))
-    kernels.check(err, fn_name)
+    kernels.launch(fn, fn_name, dev,
+                   *[_ptr(t) for t in (dz, y, x_in, w, *rows, dx, ws, dw)],
+                   *ints, _stream(dz))
     return dx, dw
 
 

@@ -180,15 +180,14 @@ def _cuda_args(what: str, mats, rows):
     return mats, [r.contiguous() for r in rows], D
 
 
-def _call(name: str, fn_name: str, args, ints, scale, causal, is_f32,
-          stream):
+def _call(name: str, fn_name: str, args, ints, scale, causal, is_f32):
+    """Launch on the device and current stream of args[0] (q)."""
     fn = getattr(kernels.lib(name), fn_name)
     fn.argtypes = ([kernels.P] * len(args) + [kernels.I] * len(ints)
                    + [ctypes.c_float, kernels.I, kernels.I, kernels.P])
     fn.restype = ctypes.c_int
-    err = fn(*[_ptr(t) for t in args], *ints, scale, int(causal), is_f32,
-             stream)
-    kernels.check(err, fn_name)
+    kernels.launch(fn, fn_name, args[0].device, *[_ptr(t) for t in args],
+                   *ints, scale, int(causal), is_f32, _stream(args[0]))
 
 
 def _stream(t):
@@ -207,8 +206,7 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     o = torch.empty_like(q)
     lse = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
     _call("flash_fwd", "hvd_flash_fwd", (q, k, v, o, lse),
-          (bh, sq, k.shape[1], D), scale, causal, _IS_F32[q.dtype],
-          _stream(q))
+          (bh, sq, k.shape[1], D), scale, causal, _IS_F32[q.dtype])
     flash_fwd.launches += 1
     return _unpad(o, dh), lse
 
@@ -230,8 +228,7 @@ def flash_bwd_dkdv(q, k, v, o, do, lse, dlse, causal: bool, scale: float):
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _call("flash_bwd_dkdv", "hvd_flash_bwd_dkdv",
           (q, k, v, o, do, lse, dlse, delta, dk, dv),
-          (bh, sq, k.shape[1], D), scale, causal, _IS_F32[q.dtype],
-          _stream(q))
+          (bh, sq, k.shape[1], D), scale, causal, _IS_F32[q.dtype])
     flash_bwd_dkdv.launches += 1
     return _unpad(dk, dh), _unpad(dv, dh), delta
 
@@ -249,8 +246,7 @@ def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool, scale: float):
     bh, sq, _ = q.shape
     dq = torch.empty_like(q)
     _call("flash_bwd_dq", "hvd_flash_bwd_dq", (q, k, v, do, lse, delta, dq),
-          (bh, sq, k.shape[1], D), scale, causal, _IS_F32[q.dtype],
-          _stream(q))
+          (bh, sq, k.shape[1], D), scale, causal, _IS_F32[q.dtype])
     flash_bwd_dq.launches += 1
     return _unpad(dq, dh)
 

@@ -68,7 +68,7 @@ import json
 import os
 import threading
 import time
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 from horovod_tpu_torch.common import config as C
 from horovod_tpu_torch.observability import tracing
@@ -401,6 +401,21 @@ class PerfScope:
         with self._lock:
             return self._steps
 
+    def recent_samples(self, since_step: int = 0
+                       ) -> Tuple[int, List[Tuple[float, Dict[str, float]]]]:
+        """Per-step (wall, phases) samples recorded after step count
+        `since_step` (bounded by the rolling window), plus the current
+        total. The hvdwatch detectors (observability/watch.py) pass the
+        returned total back on their next tick, so each step is read
+        once."""
+        with self._lock:
+            total = self._steps
+            n = min(max(total - since_step, 0), len(self._recent))
+            samples = [(w, dict(p)) for w, p in
+                       list(self._recent)[len(self._recent) - n:]] \
+                if n else []
+        return total, samples
+
     def summary(self) -> Dict[str, Any]:
         """Rolling summary over the recent window: wall percentiles, mean
         per-phase seconds and fractions, coverage, dominant phases, MFU.
@@ -570,6 +585,9 @@ class _NoopScope:
 
     def step_count(self) -> int:
         return 0
+
+    def recent_samples(self, since_step: int = 0):
+        return 0, []
 
     def step_profile(self, name: str, **extra: Any) -> Dict[str, Any]:
         return {"name": name, "perfscope": SUMMARY_VERSION, **extra}

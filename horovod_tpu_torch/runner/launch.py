@@ -33,8 +33,9 @@ HOROVOD_TIMELINE and HOROVOD_TIMELINE_MARK_CYCLES, and rank 0 writes
 the trace (core/topology.py). At the job's end the launcher writes the
 perfscope summaries the workers pushed to its KV into
 HOROVOD_FLIGHT_DIR (profiler/perfscope.py), with the flight-recorder
-tails and the trace spans (observability/flight.py, tracing.py); the
-hvdwatch records come with ROADMAP A13 part 2. It starts the native KV
+tails, the trace spans and the hvdwatch anomaly records
+(observability/flight.py, tracing.py, watch.py: `watch-rank-<r>.r<round>
+.json`, in HOROVOD_WATCH_DIR when that is set). It starts the native KV
 server (native/, where the library builds) and injects
 HOROVOD_NATIVE_KV_ADDR/PORT, which the consistency check needs; with
 HOROVOD_KV_REPLICAS > 1 the rendezvous KV is the replicated control
@@ -627,11 +628,13 @@ def _start_native_kv():
 def persist_job_records(rdv) -> None:
     """Write what the workers pushed to the rendezvous KV and what lives
     nowhere else once it stops, into HOROVOD_FLIGHT_DIR when set: the
-    flight-recorder tails, the perfscope summaries and the trace spans."""
-    from horovod_tpu_torch.observability import flight, tracing
+    flight-recorder tails, the perfscope summaries, the trace spans and
+    the hvdwatch records (those under HOROVOD_WATCH_DIR when set)."""
+    from horovod_tpu_torch.observability import flight, tracing, watch
     from horovod_tpu_torch.profiler import perfscope
     flight.persist_kv_tails(rdv)
     perfscope.persist_kv_summaries(rdv)
+    watch.persist_kv_records(rdv)
     tracing.persist_kv_spans(rdv)
 
 

@@ -388,3 +388,55 @@ def test_dq_hopper_is_bitwise_repeatable(dev):
     a = fa.flash_bwd_dq(q, k, v, do, lse, delta, True, sc)
     b = fa.flash_bwd_dq(q, k, v, do, lse, delta, True, sc)
     assert torch.equal(a, b)
+
+
+def test_kernels_launch_on_their_tensors_card(dev):
+    """Every wrapper launches on its tensors' card, not the current one:
+    with cuda:0 current and the tensors on cuda:1, kernels 1-6 (Hopper
+    instances, bf16) agree with their plain versions, and cuda:0 stays
+    current. Needs two cards."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    torch.cuda.set_device(0)
+    d1 = torch.device("cuda", 1)
+    m, cin, c = 6272, 1024, 256
+    assert cbb.bwd_instance(m, cin, c, torch.bfloat16) == "hopper"
+    x, w, scale, bias, dz = _inputs(m, cin, c, d1, seed=5)
+    y, s, q = cb.conv1x1_fwd_fused(x, w)
+    yr, sr, qr = cb._fwd_plain(x, w)
+    _close(y, yr, 2.0 ** -7)
+    assert float(((q - qr).abs() / qr.abs()).max()) <= 1e-3
+    mean = sr / m
+    inv = torch.rsqrt(qr / m - mean.square() + 1e-5)
+    db, dg = cb._bn_act_sums(dz, yr, mean, inv, scale, bias, True)
+    dx, dw = cb.conv1x1_bn_act_bwd_fused(dz, yr, x, w, scale, bias, mean,
+                                         inv, db, dg)
+    g, a, b = cbb.fold_rows(scale.float(), inv, db, dg, None, None, m)
+    dxr, dwr = cbb._bwd_plain(dz, yr, x, w, g, mean, inv, a, b,
+                              scale.float(), bias.float())
+    _close(dx, dxr, 2.0 ** -7)
+    _close(dw, dwr, 1e-3)
+    db, dg = cb._bn_act_sums(dz, yr, mean, inv, scale, bias, False)
+    dx3, dw3 = cbb.conv1x1_bn_bwd_fused(dz, yr, x, w, scale.float(), mean,
+                                        inv, db, dg)
+    g, a, b = cbb.fold_rows(scale.float(), inv, db, dg, None, None, m)
+    dxr, dwr = cbb._bwd_plain(dz, yr, x, w, g, mean, inv, a, b,
+                              torch.zeros_like(inv), torch.ones_like(inv))
+    _close(dx3, dxr, 2.0 ** -7)
+    _close(dw3, dwr, 1e-3)
+    bh, S, dh = 4, 256, 128
+    assert fa.flash_instance(torch.bfloat16, dh) == "hopper"
+    qq, kk, vv, do, _ = _dq_inputs(bh, S, S, dh, False, d1, 12)
+    sc = dh ** -0.5
+    o, lse = fa.flash_fwd(qq, kk, vv, True, sc)
+    _close_tiles(o, fa._fwd_plain(qq, kk, vv, True, sc)[0], 2.0 ** -7)
+    dk, dv, delta = fa.flash_bwd_dkdv(qq, kk, vv, o, do, lse, None, True, sc)
+    dk_r, dv_r, _ = fa._bwd_dkdv_plain(qq, kk, vv, o, do, lse, None, True,
+                                       sc)
+    _close_tiles(dk, dk_r, 2.0 ** -7)
+    _close_tiles(dv, dv_r, 2.0 ** -7)
+    dq = fa.flash_bwd_dq(qq, kk, vv, do, lse, delta, True, sc)
+    _close_tiles(dq, fa._bwd_dq_plain(qq, kk, vv, do, lse, delta, True, sc),
+                 2.0 ** -7)
+    torch.cuda.synchronize(d1)
+    assert torch.cuda.current_device() == 0
