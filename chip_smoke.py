@@ -244,6 +244,28 @@ Phases, each fatal on failure:
      DataServiceClient and DeviceFeed into the same step: the losses
      equal the same batches fed in process bit for bit, and the
      input_wait share.
+ 15. tensor, pipeline and expert parallelism — the flagship LM (bf16,
+     Adam, attn="flash", seed-0 weights, phase 5's batch) on one card:
+     (a) remat "dots" and "full", 3 steps each, losses against phase
+     5's (TOL_REMAT, and whether bit for bit), peak memory against phase
+     5's, 24 launches of kernel 4 a step (the recompute) and 12 of
+     kernels 5 and 6; (b) 8 experts at ep = 1 (capacity 2.0) with remat
+     "dots": the first loss with attn="flash" against attn="local" on
+     the same weights (TOL_MOE_LOSS), the tokens routed differently and
+     dropped, 3 training steps, their peak memory and launches; (c) two
+     microbatches at pp = 1 against phase 5's losses (TOL_MICRO); then,
+     with two or more cards, through runner.run under HOROVOD_MESH, the
+     LM at tp = N, at pp = N with N microbatches, at ep = N with 8
+     experts, and at dp = 2 x tp = 2 (N = 4 with four cards, else 2):
+     rank 0's world losses (tp's and pp's, whose model and batch are
+     the one card's, against its losses to TOL_SP_LOSS), tokens/s,
+     ms/step, each rank's peak memory and launches of kernels 4–6 a
+     step ((L/pp)·(M + pp − 1) per stage under pp); with four cards the
+     tied LM at bench.py's gspmd_hybrid shapes (canonical config, B 64,
+     S 64; SGD at TIED_LR) at dp = 2 x tp = 2 against dp = 4: the first
+     losses (TOL_TIED_LOSS), and each step's move of the loss against
+     the whole move (TOL_TIED), which must reach TIED_MIN_MOVE; with
+     one card it says so.
 Then the `kernels` JSON line, the card's name and power limit, and last
 {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
 
@@ -1046,7 +1068,7 @@ def resnet_f32_check(batch=32, image=224, depth=50):
 
 def lm_path(warmup=2, timed=5):
     """The transformer LM at the bench's flagship width and batch
-    (transformer_lm.FLAGSHIP) through transformer_lm's build/train_step,
+    (transformer_lm.FLAGSHIP) through transformer_lm.build and its step,
     attn="flash", the counters read around 2 warm-up + 5 timed steps;
     then one step from the same weights with attn="local"."""
     import dataclasses
@@ -1064,14 +1086,14 @@ def lm_path(warmup=2, timed=5):
          f"the LM's head dim {dh} does not take the flash kernels' Hopper "
          f"instances")
     dev = hvd.device()
-    model, opt = lm.build(cfg, dev)
+    model, opt, step = lm.build(cfg, dev)
     data = lm.make_batch(batch, seq, cfg.vocab, dev, seed=hvd.rank())
     torch.cuda.reset_peak_memory_stats(dev)
     reset_counters()
-    losses = [lm.train_step(model, opt, data) for _ in range(warmup)]
+    losses = [step(data) for _ in range(warmup)]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    losses += [lm.train_step(model, opt, data) for _ in range(timed)]
+    losses += [step(data) for _ in range(timed)]
     torch.cuda.synchronize()
     dt = (time.perf_counter() - t0) / timed
     counts = read_counters()
@@ -1098,13 +1120,13 @@ def lm_path(warmup=2, timed=5):
 
     snap_m = copy.deepcopy(model.state_dict())
     snap_o = copy.deepcopy(opt.state_dict())
-    loss_f = lm.train_step(model, opt, data).item()
+    loss_f = step(data).item()
     model.load_state_dict(snap_m)
     opt.load_state_dict(snap_o)
     del snap_m, snap_o
     model.cfg = dataclasses.replace(cfg, attn="local")
     reset_counters()
-    loss_l = lm.train_step(model, opt, data).item()
+    loss_l = step(data).item()
     counts_l = read_counters()
     rel = abs(loss_f - loss_l) / max(abs(loss_l), 1e-6)
     out.update(loss_flash=loss_f, loss_local=loss_l, loss_rel=rel,
@@ -4253,6 +4275,335 @@ def serving_path() -> dict:
     out["watch_data_top_s"] = time.perf_counter() - t1
     return out
 
+# --------------------- phase 15: tensor, pipeline and expert parallelism
+
+# (a) Remat recomputes each layer from the same inputs with the same
+# kernels, so its losses repeat phase 5's bit for bit where every kernel
+# of the step is deterministic; the bar is phase 11's (2e-3 relative,
+# 4 Adam steps in bf16) in case an atomics-based backward sums in
+# another order. (b) The MoE LM with attn="flash" against attn="local"
+# on the same weights: the attention outputs differ by a bf16 step, so
+# a token whose top-1/top-2 router margin is below that routes to
+# another expert; TOL_MOE_LOSS leaves room for a few such tokens out of
+# 12288 per layer (each moves the loss by ~1/12288 of a token's NLL
+# difference). (c) Two microbatches at pp = 1 run every GEMM at half
+# the rows: bf16 outputs of other shapes, so the same 2e-3 as (a). The
+# worlds: tp and pp sum over tp in another order than one card and ep
+# and dp train other batches, so their losses are printed beside the
+# one card's, and tp's and pp's held to TOL_SP_LOSS.
+TOL_REMAT = 2e-3
+TOL_MOE_LOSS = 2e-3
+TOL_MICRO = 2e-3
+
+
+def _lm_steps(cfg, steps, seed=0):
+    """`steps` Adam steps of the one-card LM at `cfg` through
+    transformer_lm.build and its step from the seed-0 weights on phase 5's
+    batch, the launch counters set to 0 just before and read just after.
+    Returns (losses, launches per step, peak GB, ms/step of the steps
+    after the first)."""
+    import torch
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import transformer_lm as lm
+    dev = hvd.device()
+    model, opt, step = lm.build(cfg, dev, seed)
+    data = lm.make_batch(lm.FLAGSHIP_BATCH, cfg.max_seq, cfg.vocab, dev,
+                         seed=0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counters()
+    losses = [step(data)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()  # the first step warms the allocator
+    losses += [step(data) for _ in range(steps - 1)]
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / (steps - 1) * 1e3
+    counts = read_counters()
+    del model, opt, step
+    torch.cuda.empty_cache()
+    return ([float(v) for v in losses],
+            {k: counts[k] / steps for k in ("attn_fwd", "attn_dkdv",
+                                            "attn_dq")},
+            torch.cuda.max_memory_allocated(dev) / 1e9, ms)
+
+
+def _rel_diff(a, b):
+    """|a − b| / |b| of two losses."""
+    return abs(a - b) / max(abs(b), 1e-6)
+
+
+def parallel_one_card(lm_out: dict) -> dict:
+    """Phase 15 on one card: (a) remat "dots" and "full", (b) the MoE LM
+    (8 experts, ep = 1, capacity 2.0, remat "dots") against
+    attn="local", then 3 training steps, (c) two microbatches at pp = 1;
+    the flagship width, bf16, Adam, from the seed-0 weights on phase 5's
+    batch. ms/step counts the steps after the first."""
+    import dataclasses
+    import torch
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import transformer_lm as lm
+    from horovod_tpu_torch.models import transformer as tfm
+    from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.parallel import moe
+    L = lm.FLAGSHIP["n_layers"]
+    need(fa.flash_instance(torch.bfloat16, 128) == "hopper",
+         "the LM's bf16 dh-128 attention is not on the Hopper instances")
+    base = tfm.TransformerConfig(**lm.FLAGSHIP, attn="flash",
+                                 dtype=torch.bfloat16)
+    ref, out = lm_out["losses"], {}
+    print(f"phase 5 (no remat): losses {[round(v, 6) for v in ref[:3]]}, "
+          f"peak memory {lm_out['peak_mem_gb']:.1f} GB, "
+          f"{lm_out['step_ms']:.2f} ms/step")
+    hvd.init()
+    try:
+        for policy in ("dots", "full"):
+            cfg = dataclasses.replace(base, remat=True, remat_policy=policy)
+            losses, per, peak, ms = _lm_steps(cfg, 3)
+            rel = max(_rel_diff(a, b) for a, b in zip(losses, ref))
+            print(f"(a) remat {policy}: losses {[round(v, 6) for v in losses]}"
+                  f", bit for bit {losses == ref[:3]}, largest relative "
+                  f"difference {rel:.3g} (tolerance {TOL_REMAT}); peak "
+                  f"memory {peak:.1f} GB against phase 5's "
+                  f"{lm_out['peak_mem_gb']:.1f}; {ms:.2f} ms/step; "
+                  f"launches a step {per}")
+            need(rel <= TOL_REMAT, f"remat {policy} losses disagree with "
+                 f"phase 5's")
+            need(per == {"attn_fwd": 2 * L, "attn_dkdv": L, "attn_dq": L},
+                 f"remat {policy}: expected {2 * L} launches of kernel 4 "
+                 f"and {L} of kernels 5 and 6 a step, got {per}")
+            out[f"a_{policy}"] = dict(losses=losses, launches=per,
+                                      peak_mem_gb=peak, step_ms=ms,
+                                      bit_equal=losses == ref[:3], rel=rel)
+
+        # (b) MoE: the loss on the seed-0 weights with both attentions
+        # (routing recorded), then 2 training steps with flash.
+        cfg = dataclasses.replace(base, num_experts=8, remat=True)
+        dev = hvd.device()
+        model, opt, step = lm.build(cfg, dev)
+        data = lm.make_batch(lm.FLAGSHIP_BATCH, cfg.max_seq, cfg.vocab, dev,
+                             seed=0)
+        routes, orig = [], moe.route
+        moe.route = lambda *a: routes.append(orig(*a)) or routes[-1]
+        try:
+            firsts = {}
+            for attn in ("local", "flash"):
+                model.cfg = dataclasses.replace(cfg, attn=attn)
+                with torch.no_grad():
+                    firsts[attn] = float(tfm.loss_fn(model, *data))
+        finally:
+            moe.route = orig
+        n, tokens = len(routes) // 2, routes[0][1].numel()
+        moved = sum(int((a[1] != b[1]).sum()) for a, b in
+                    zip(routes[:n], routes[n:]))
+        dropped = [int((~r[3]).sum()) for r in routes[n:]]
+        del routes
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_counters()
+        losses = [float(step(data))]
+        t0 = time.perf_counter()  # after the first step's allocations
+        losses += [float(step(data)) for _ in range(2)]
+        ms = (time.perf_counter() - t0) / 2 * 1e3
+        per = {k: v / 3 for k, v in read_counters().items()
+               if k.startswith("attn")}
+        peak = torch.cuda.max_memory_allocated(dev) / 1e9
+        rel = _rel_diff(firsts["flash"], firsts["local"])
+        print(f"(b) MoE E=8 ep=1 capacity 2.0 remat dots: flash loss "
+              f"{firsts['flash']:.6f}, local {firsts['local']:.6f}, relative "
+              f"difference {rel:.3g} (tolerance {TOL_MOE_LOSS}); tokens "
+              f"routed differently {moved} of {n * tokens}; tokens dropped "
+              f"by layer (flash) {dropped}; training losses "
+              f"{[round(v, 6) for v in losses]}; {ms:.2f} ms/step; peak "
+              f"memory {peak:.1f} GB; launches a step {per}")
+        need(all(math.isfinite(v) for v in losses), "MoE loss not finite")
+        need(rel <= TOL_MOE_LOSS, "MoE flash and local losses disagree")
+        need(abs(losses[0] - firsts["flash"]) <= TOL_REMAT *
+             abs(firsts["flash"]), "the MoE step's loss is not its forward's")
+        need(per == {"attn_fwd": 2 * L, "attn_dkdv": L, "attn_dq": L},
+             f"MoE: expected {2 * L} launches of kernel 4 and {L} of "
+             f"kernels 5 and 6 a step, got {per}")
+        out["b"] = dict(loss_flash=firsts["flash"], loss_local=firsts["local"],
+                        rel=rel, routed_differently=moved, dropped=dropped,
+                        losses=losses, step_ms=ms, peak_mem_gb=peak,
+                        launches=per)
+        del model, opt, step
+        torch.cuda.empty_cache()
+
+        # (c) two microbatches at pp = 1
+        losses, per, peak, ms = _lm_steps(
+            dataclasses.replace(base, microbatches=2), 2)
+        rel = max(_rel_diff(a, b) for a, b in zip(losses, ref))
+        print(f"(c) microbatches 2 at pp=1: losses "
+              f"{[round(v, 6) for v in losses]} against phase 5's "
+              f"{[round(v, 6) for v in ref[:2]]}, largest relative "
+              f"difference {rel:.3g} (tolerance {TOL_MICRO}); {ms:.2f} "
+              f"ms/step; peak memory {peak:.1f} GB; launches a step {per}")
+        need(rel <= TOL_MICRO, "the pipelined step's losses disagree")
+        need(all(v == 2 * L for v in per.values()),
+             f"microbatches 2: expected {2 * L} launches of kernels 4-6 a "
+             f"step, got {per}")
+        out["c"] = dict(losses=losses, rel=rel, launches=per,
+                        peak_mem_gb=peak, step_ms=ms)
+    finally:
+        hvd.shutdown()
+    return out
+
+
+def _mesh_steps(attn, cfg_kw):
+    """One rank of a phase 15 world: transformer_lm.flagship_steps, with
+    every thread's stack printed should the launcher's SIGTERM end it."""
+    import faulthandler
+    import signal
+    from horovod_tpu_torch import transformer_lm as lm
+    faulthandler.register(signal.SIGTERM, chain=True)
+    return lm.flagship_steps(attn, **cfg_kw)
+
+
+def _tied_rank(batch=64, seq=64, warmup=2, steps=9):
+    """One rank of phase 15's tied-LM worlds: hybrid_lm.train at
+    bench.py's gspmd_hybrid shapes (canonical config, B 64, S 64) with
+    SGD at TIED_LR on the HOROVOD_MESH mesh; losses, ms/step and peak
+    GB."""
+    import torch
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import hybrid_lm
+    from horovod_tpu_torch.models import tied_lm
+    hvd.init()
+    try:
+        dev = hvd.device()
+        cfg = tied_lm.canonical_config()
+        params = tied_lm.init(0, cfg, dev)
+        data = tied_lm.sample_batch(1, cfg, batch=batch, seq=seq, device=dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        losses, step_s = hybrid_lm.train(cfg, hvd.hybrid_mesh(), params,
+                                         data, warmup + steps, TIED_LR,
+                                         optimizer="sgd", warmup=warmup)
+        return dict(losses=losses, step_s=step_s,
+                    peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
+    finally:
+        hvd.shutdown()
+
+
+def parallel_worlds(lm_out: dict) -> dict:
+    """Phase 15 with two or more cards, through runner.run under
+    HOROVOD_MESH: the flagship LM at tp = N, at pp = N with N
+    microbatches, at ep = N with 8 experts, at dp = 2 x tp = 2 (four
+    cards), and the tied LM at dp = 2 x tp = 2 against dp = 4 (four
+    cards); with one card it says so."""
+    import functools
+    import torch
+    from horovod_tpu_torch import runner
+    from horovod_tpu_torch import transformer_lm as lm
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        print("phase 15 worlds: one card; the tp, pp, ep and dp x tp "
+              "worlds need two or more")
+        return {}
+    N = 4 if cards >= 4 else 2
+    L, steps = lm.FLAGSHIP["n_layers"], 4
+    ref, out = lm_out["losses"], {}
+    worlds = [("tp", f"tp={N}", {}), ("pp", f"pp={N}", dict(microbatches=N)),
+              ("ep", f"ep={N}", dict(num_experts=8, remat=True))]
+    if cards >= 4:
+        worlds.append(("dp_tp", "dp=2,tp=2", {}))
+    for name, mesh, kw in worlds:
+        res = runner.run(functools.partial(_mesh_steps, "flash", kw), np=N,
+                         extra_env={"HOROVOD_MESH": mesh}, timeout=600)
+        losses = res[0]["losses"]
+        need(all(math.isfinite(v) for v in losses),
+             f"phase 15 {name}: non-finite loss {losses}")
+        per = [{k: c / steps for k, c in r["launches"].items()}
+               for r in res]
+        if name in ("tp", "pp"):  # the one card's model and batch
+            rel = max(_rel_diff(a, b) for a, b in zip(losses, ref))
+            held = (f"one card's {[round(v, 6) for v in ref[:steps]]}, "
+                    f"largest relative difference {rel:.3g} (tolerance "
+                    f"{TOL_SP_LOSS})")
+        else:  # ep: the MoE LM; dp x tp: two data blocks
+            rel, held = None, (
+                f"not held to the one card's: {N} data blocks of the MoE LM"
+                if name == "ep" else "not held to the one card's: 2 data "
+                "blocks")
+        print(f"(15 {name}) mesh {mesh}: losses "
+              f"{[round(v, 6) for v in losses]}, {held}; "
+              f"{res[0]['tokens_per_s']:.1f} tokens/s "
+              f"over the global batch, {res[0]['step_ms']:.2f} ms/step; peak "
+              f"memory by rank {[round(r['peak_mem_gb'], 2) for r in res]} "
+              f"GB; launches of kernels 4/5/6 a step by rank "
+              f"{[(c['attn_fwd'], c['attn_dkdv'], c['attn_dq']) for c in per]}")
+        if rel is not None:
+            need(rel <= TOL_SP_LOSS, f"phase 15 {name}: losses disagree "
+                 f"with the one card's")
+        if name == "pp":
+            want = L // N * (N + N - 1)  # (L/pp)·(M + pp − 1), M = N
+            need(all(c["attn_fwd"] == want for c in per),
+                 f"phase 15 pp: expected {want} launches of kernel 4 a "
+                 f"step per stage, got {per}")
+        else:
+            fwd = 2 * L if kw.get("remat") else L
+            need(all(c["attn_fwd"] == fwd and c["attn_dq"] == L
+                     for c in per),
+                 f"phase 15 {name}: expected {fwd} launches of kernel 4 "
+                 f"and {L} of kernel 6 a step, got {per}")
+        out[name] = dict(mesh=mesh, ranks=res, launches_per_step=per,
+                         rel=rel)
+    if cards >= 4:
+        tied = {}
+        for mesh in ("dp=2,tp=2", "dp=4"):
+            res = runner.run(_tied_rank, np=4,
+                             extra_env={"HOROVOD_MESH": mesh}, timeout=600)
+            r0 = res[0]
+            tied[mesh] = res
+            print(f"(15 tied LM) mesh {mesh}: losses "
+                  f"{[round(v, 6) for v in r0['losses']]}, "
+                  f"{64 * 64 / r0['step_s']:.0f} tokens/s, "
+                  f"{r0['step_s'] * 1e3:.3f} ms/step (after 2 warm-up "
+                  f"steps); peak memory by rank "
+                  f"{[round(r['peak_mem_gb'], 3) for r in res]} GB")
+            need(all(math.isfinite(v) for v in r0["losses"]),
+                 f"tied LM at {mesh}: non-finite loss")
+        a, b = (tied[m][0]["losses"] for m in ("dp=2,tp=2", "dp=4"))
+        first = _rel_diff(a[0], b[0])
+        da, db = ([v - x[0] for v in x] for x in (a, b))
+        move = max(abs(v) for v in db)
+        rel = max(abs(x - y) for x, y in zip(da, db)) / max(move, 1e-30)
+        print(f"(15 tied LM) dp=2,tp=2 against dp=4: first loss relative "
+              f"difference {first:.3g} (tolerance {TOL_TIED_LOSS}); the "
+              f"loss moves {move:.6f} over the steps (at least "
+              f"{TIED_MIN_MOVE}); the largest difference of the two "
+              f"meshes' moves {rel:.3g} of it (tolerance {TOL_TIED})")
+        need(first <= TOL_TIED_LOSS, "the tied LM's hybrid and "
+             "data-parallel first losses disagree")
+        need(move >= TIED_MIN_MOVE, "the tied LM's data-parallel "
+             "trajectory does not move")
+        need(rel <= TOL_TIED, "the tied LM's hybrid and data-parallel "
+             "trajectories disagree")
+        out["tied"] = dict(runs=tied, first_rel=first, move=move, rel=rel)
+    return out
+
+
+# The tied LM in f32 (tf32 off) at dp=2 x tp=2 against dp=4: the same
+# math in other reduction orders. The first losses (the forward) agree
+# to f32 rounding (~1e-7 relative). At bench.py's SGD 0.01 the 11 steps
+# move the loss by ~2e-5, a few f32 ulps of 9.01, where no check can
+# see the step; at TIED_LR 10 the near-linear start moves it by ~1.8e-2,
+# ~1e4 times the meshes' ~1e-6 of rounding, so each step's move
+# (loss[i] − loss[0]) is held to TOL_TIED of the whole move. A step that
+# drops the /tp doubles the hybrid mesh's move (reads ~1), one that
+# skips the gradient reduction leaves each dp half on its own batch,
+# and one that leaves the weights alone does not move.
+TIED_LR = 10.0
+TIED_MIN_MOVE = 5e-3
+TOL_TIED_LOSS = 1e-5
+TOL_TIED = 1e-2
+
+
+def parallel_path(lm_out: dict) -> dict:
+    """Phase 15 (see the module docstring)."""
+    out = {"one_card": parallel_one_card(lm_out)}
+    out["worlds"] = parallel_worlds(lm_out)
+    return out
+
+
 
 def main() -> int:
     import torch
@@ -4331,6 +4682,8 @@ def main() -> int:
     lap("13 observability and the control plane")
     serving = serving_path()
     lap("14 serving, the record readers and the data service")
+    parallel = parallel_path(lm)
+    lap("15 tensor, pipeline and expert parallelism")
     print(f"total: {time.perf_counter() - t0:.1f} s")
 
     src = "horovod_tpu_torch/csrc/"
@@ -4380,6 +4733,7 @@ def main() -> int:
                    "other_models_path": others,
                    "observability_path": observability,
                    "serving_path": serving,
+                   "parallel_path": parallel,
                    "phase_s": phase_s,
                    "nvidia_smi": smi}, f, indent=1)
     print(json.dumps(line))

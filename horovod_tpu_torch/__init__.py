@@ -27,7 +27,10 @@ and `horovod_tpu_torch.ckpt` the async two-phase checkpointer with
 exactly-once resume. Under HOROVOD_MESH ("dp=2,sp=2") init lays the
 ranks on named axes (`hvd.mesh_spec()`, `hvd.hybrid_mesh()`,
 `hvd.axis_process_set`), over which the transformer LM runs ring or
-Ulysses attention (`horovod_tpu_torch.parallel`). The in-place forms
+Ulysses attention, tensor, pipeline and expert parallelism
+(`horovod_tpu_torch.parallel`), and `DistributedOptimizer(
+sharding_spec=...)` reduces each shard's gradient over the axes it is
+replicated on. The in-place forms
 (`allreduce_`, `grouped_allreduce_`, `broadcast_` and their `_async_`
 forms) write into the caller's tensors; `grouped_allgather_async` and
 `grouped_reducescatter_async` give one handle for a group; the build

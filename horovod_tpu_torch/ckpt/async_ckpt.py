@@ -559,9 +559,11 @@ class AsyncCheckpointer:
                        ) -> Optional[Restored]:
         """Restore the newest committed checkpoint, quarantining corrupt
         or partial generations and falling back to older ones (None when
-        no committed checkpoint survives). `mesh` + `specs` would place
-        the tree onto a device mesh: ROADMAP A11. The checkpointer's own
-        KV client rides along for the restore heartbeat."""
+        no committed checkpoint survives). With `mesh` and `specs` each
+        rank gets its own block of every leaf under those specs
+        (sharded.reshard), which may be another mesh's than the save's.
+        The checkpointer's own KV client rides along for the restore
+        heartbeat."""
         from horovod_tpu_torch.ckpt import resume
         return resume.restore_latest(
             self.root, like=like, mesh=mesh, specs=specs,

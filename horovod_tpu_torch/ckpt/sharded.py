@@ -20,8 +20,15 @@ Which rank writes what:
 - a ``Fragment`` is a part of a larger leaf, given with its offsets into
   the global array; it writes one shard file named by its offsets, so
   the writers of a multi-writer save never clobber each other's files.
-Placing an assembled leaf onto a device mesh (``reshard``) needs the
-port's mesh, which comes with ROADMAP A11.
+  ``fragments(tree, specs, mesh)`` makes them from a tree of tp-, pp-
+  or ep-sharded leaves (this rank's shards under partition specs on the
+  HOROVOD_MESH mesh): each with its offsets, the global shape and its
+  spec, which the manifest records; the first replica of each shard
+  writes it, the others only declare the leaf.
+``reshard(tree, mesh, specs)`` cuts this rank's shard of each assembled
+global leaf under the specs of another mesh, the restore that changes
+the mesh's shape (JAX places the leaves with NamedShardings; here each
+rank keeps its own block).
 
 bf16 on disk: the JAX package writes an ml_dtypes bfloat16 leaf as a
 ``.npy`` of raw 2-byte voids (descr ``'<V2'``) with ``dtype
@@ -32,6 +39,7 @@ same way, byte for byte, and reads ``'<V2'`` (or int16) bits back as
 
 from __future__ import annotations
 
+import math
 import os
 import re
 from typing import Any, Dict, Iterator, List, NamedTuple, Optional, \
@@ -48,11 +56,15 @@ BF16 = "bfloat16"
 
 
 class Fragment(NamedTuple):
-    """A part of a global leaf of shape `shape`, starting at `start`."""
+    """A part of a global leaf of shape `shape`, starting at `start`,
+    sharded under partition spec `spec` (None: not recorded); `write`
+    False where another rank writes the same part."""
 
     data: Any
     start: Tuple[int, ...]
     shape: Tuple[int, ...]
+    spec: Optional[tuple] = None
+    write: bool = True
 
 
 def spec_to_json(spec) -> Optional[List[Any]]:
@@ -206,7 +218,8 @@ def snapshot_tree(tree: Any, keep_replicated: bool = True
     for _, leaf in leaves:
         data = leaf.data if isinstance(leaf, Fragment) else leaf
         if isinstance(data, torch.Tensor) and (
-                keep_replicated or isinstance(leaf, Fragment)):
+                leaf.write if isinstance(leaf, Fragment)
+                else keep_replicated):
             tensors.append(data)
     copies = iter(_host_copies(tensors))
     out: List[LeafSnapshot] = []
@@ -214,14 +227,15 @@ def snapshot_tree(tree: Any, keep_replicated: bool = True
     for path, leaf in leaves:
         frag = isinstance(leaf, Fragment)
         data = leaf.data if frag else leaf
-        keep = keep_replicated or frag
+        keep = leaf.write if frag else keep_replicated
         if isinstance(data, torch.Tensor):
             host = next(copies) if keep else None
         else:
             host = np.array(data) if keep else None  # a copy
             data = host if host is not None else np.asarray(data)
         shape = tuple(leaf.shape) if frag else tuple(data.shape)
-        entry = LeafEntry(path=path, shape=shape, dtype=dtype_name(data))
+        entry = LeafEntry(path=path, shape=shape, dtype=dtype_name(data),
+                          spec=spec_to_json(leaf.spec) if frag else None)
         shards = []
         if keep:
             start = tuple(int(a) for a in leaf.start) if frag \
@@ -380,10 +394,68 @@ def restore_tree(dirpath: str, entries: Sequence[LeafEntry],
     return root
 
 
-def reshard(tree: Any, mesh, specs: Any) -> Any:
-    """Placing an assembled tree onto a device mesh under per-leaf specs
-    needs the port's device mesh (parallel/mesh.py), which is not ported
-    yet."""
-    raise HorovodError("ckpt.reshard places leaves onto a device mesh, "
-                       "which the port gets with parallel/mesh.py "
-                       "(ROADMAP A11)")
+def _map_specs(fn, tree: Any, specs: Any) -> Any:
+    """fn(leaf, spec) over `tree`'s leaves, `specs` a tree of the same
+    dict/sequence structure whose leaves are partition specs (tuples)."""
+    if isinstance(tree, dict):
+        return type(tree)((k, _map_specs(fn, tree[k], specs[k]))
+                          for k in tree)
+    if isinstance(tree, (list, tuple)) and not _is_leaf(tree):
+        out = [_map_specs(fn, v, s) for v, s in zip(tree, specs)]
+        return out if isinstance(tree, list) else type(tree)(out)
+    return fn(tree, specs)
+
+
+def fragments(tree: Any, specs: Any, mesh=None) -> Any:
+    """`tree`'s leaves, this rank's shards under `specs` on `mesh`
+    (default the HOROVOD_MESH mesh), as Fragments: the offsets of the
+    rank's block in the global array, the global shape and the spec. A
+    block is written by its first replica, the rank at index 0 on every
+    live axis the spec leaves out (a replicated leaf by rank 0), as JAX
+    writes the shards of replica 0. Scalars (Python or 0-d) stay as they
+    are: the primary writes them. Every writer must save a tree of the
+    same leaves (shard files are named by leaf index): a leaf held by
+    other ranks only is declared as a Fragment with `write` False
+    (models/transformer.py checkpoint_tree does so for other pipeline
+    stages' layers)."""
+    from horovod_tpu_torch.core import topology
+    from horovod_tpu_torch.parallel import mesh as mesh_mod
+    m = mesh if mesh is not None else mesh_mod.current_mesh()
+    if m is None:
+        raise HorovodError("ckpt.fragments needs a mesh (HOROVOD_MESH, or "
+                           "mesh=)")
+    rank = topology.rank()
+    at, sizes = m.coords(rank), mesh_mod.mesh_axis_sizes(m)
+
+    def frag(x, spec):
+        if not isinstance(x, (torch.Tensor, np.ndarray)) or not x.ndim:
+            return x
+        spec = tuple(spec or ())
+        named = {a for e in spec for a in mesh_mod._spec_names(e)}
+        shape = list(x.shape)
+        own = spec[1:] if len(spec) == len(shape) + 1 else spec
+        for d, e in enumerate(own):
+            parts = math.prod(sizes[a] for a in mesh_mod._spec_names(e))
+            shape[d] *= parts
+        index = mesh_mod.shard_index(spec, shape, m, rank)
+        write = all(at[a] == 0 for a in m.axis_names if a not in named)
+        return Fragment(x, tuple(sl.start for sl in index), tuple(shape),
+                        spec, write)
+
+    return _map_specs(frag, tree, specs)
+
+
+def reshard(tree: Any, mesh, specs: Any, rank: Optional[int] = None
+            ) -> Any:
+    """Rank `rank`'s (default this rank's) block of every assembled
+    global leaf of `tree` under `specs` on `mesh` (the restore onto a
+    mesh of another shape: the blocks need not match the ones the
+    checkpoint was written in). Scalars pass through."""
+    from horovod_tpu_torch.parallel import mesh as mesh_mod
+
+    def cut(x, spec):
+        if not isinstance(x, (torch.Tensor, np.ndarray)) or not x.ndim:
+            return x
+        return mesh_mod.shard_of(x, spec, mesh, rank)
+
+    return _map_specs(cut, tree, specs)

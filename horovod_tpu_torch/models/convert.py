@@ -19,7 +19,11 @@ stats → `a0.b5x5.1.bn.mean`, `.var`).
 horovod_tpu.models.transformer.init returns (layer leaves stacked on a
 leading L axis) and gives the state dict of
 models/transformer.TransformerLM: each stacked leaf becomes one
-`layers.<i>.<name>` entry per layer, every shape otherwise kept.
+`layers.<i>.<name>` entry per layer, every shape otherwise kept (the
+MoE's router, we1 and we2 included). `transformer_shard_from_jax(params,
+cfg, mesh, rank)` gives one rank's shard of it on a mesh: the layers of
+its pipeline stage, each leaf cut by its partition spec, the state dict
+of that rank's TransformerLM.
 
 Nothing of JAX is imported: the caller hands over plain arrays.
 """
@@ -88,13 +92,24 @@ def transformer_from_jax(params: Mapping[str, Any]) -> Dict[str, np.ndarray]:
     return out
 
 
+def transformer_shard_from_jax(params: Mapping[str, Any], cfg, mesh=None,
+                               rank=None) -> Dict[str, np.ndarray]:
+    """Rank `rank`'s (default this rank's) TransformerLM state on `mesh`
+    (default the mesh in force) for a JAX transformer's global tree at
+    config `cfg` (models/transformer.shard_state)."""
+    from horovod_tpu_torch.models import transformer
+    return transformer.shard_state(transformer_from_jax(params), cfg, mesh,
+                                   rank)
+
+
 def load_jax_transformer(model, params) -> None:
     """Copy a JAX transformer's weights into `model` (cast to each
     parameter's dtype and device)."""
     import torch
 
     state = {k: torch.from_numpy(np.array(v)) for k, v in
-             transformer_from_jax(params).items()}
+             transformer_shard_from_jax(params, model.cfg,
+                                        model.mesh).items()}
     model.load_state_dict(state, strict=True)
 
 

@@ -20,8 +20,9 @@ writes an atomic local dump to ``HOROVOD_FLIGHT_DIR/<rank>.json`` and
 pushes a compact tail to the launcher's rendezvous KV (scope
 ``flight``), which the launcher persists at the job's end
 (`persist_kv_tails`), so a SIGKILL'd worker still leaves its last tail.
-The exporter thread refreshes the tail on its cadence. The offline
-merge of the dumps (hvddoctor) is ROADMAP A13 part 2.
+The exporter thread refreshes the tail on its cadence. hvddoctor
+(observability/doctor.py) merges the dumps and tails offline into one
+story of the job.
 
 Knobs: ``HOROVOD_FLIGHT=0`` disables (a no-op shell, as
 ``HOROVOD_METRICS=0``); ``HOROVOD_FLIGHT_DIR`` is where dumps land;

@@ -20,9 +20,12 @@ The training plane gets a ``train.step`` root span per perfscope step
 collectives' instrumented windows (`collective_span`) and a dispatch
 marker from their choke point (`record_dispatch`). The step's span is
 kept per process, not per thread: on a card the gradient hooks launch
-their buckets on autograd's device thread. The serving plane's spans
-come with serving (ROADMAP A12); the offline merge with hvddoctor
-(A13 part 2).
+their buckets on autograd's device thread. The serving plane records
+its spans here too: serve/frontend.py opens a `serve.request` root per
+request from the client's context (`request_context`, `record_span`)
+and serve/engine.py an `engine.execute` child per batch; hvddoctor
+(observability/doctor.py `--trace`) merges the dumps into one
+timeline.
 
 Knobs: ``HOROVOD_TRACE=0`` swaps the tracer for a no-op shell;
 ``HOROVOD_TRACE_SAMPLE`` is the head sampling probability;

@@ -49,6 +49,21 @@ the same buckets. The tuners coordinate over the global set: an
 optimizer over a smaller process set does not feed them. Once they are
 frozen, a step does not sync.
 
+The sharded step (`sharding_spec` given, with the mesh: the port of the
+JAX package's `sharded_step` / `build_sharded_train_step`): each
+parameter is this rank's shard of a global leaf under a partition spec
+over the HOROVOD_MESH mesh, and no hook is registered. After the
+backward pass, `step()` divides every gradient by the tp size (the
+loss is computed redundantly on every tp member, REDUNDANT_LOSS_AXES),
+then reduces each gradient over the live axes its spec leaves out
+(`grad_axes_from_specs`): one grouped all-reduce for each distinct
+axis set, over the process set of those axes, averaged over the batch
+axes among them and summed over the model axes (op Average), or summed
+(op Sum, for a loss already divided by the global token count, as the
+LM's local_loss is). Reducing after the backward pass, never from
+hooks, keeps every rank's collectives in one order while a pipeline's
+ring shifts run inside the backward pass.
+
 perfscope (profiler/perfscope.py) is fed as in the reference: each
 `step()` that applies gradients closes one implicit training step (step
 N runs from the end of call N-1 to the end of call N; under
@@ -76,9 +91,10 @@ While a tuner times the buckets, their overlap feeds
 from __future__ import annotations
 
 import functools
+import math
 import time
 import weakref
-from typing import Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -88,7 +104,80 @@ from horovod_tpu_torch.core import topology
 from horovod_tpu_torch.core.process_sets import ProcessSet, global_process_set
 from horovod_tpu_torch.ops import collectives, fusion
 from horovod_tpu_torch.ops.compression import Compression, wire_dtype
+from horovod_tpu_torch.parallel import mesh as mesh_mod
 from horovod_tpu_torch.profiler import perfscope
+
+#: Mesh axes over which the shard-local losses compute the loss
+#: redundantly (every member holds the same scalar, each copy
+#: differentiated on its rank): per-rank autograd scales every gradient
+#: by the axis size, and the sharded step divides it back out
+#: (models/transformer.py local_loss, models/tied_lm.py local_loss).
+REDUNDANT_LOSS_AXES: Tuple[str, ...] = ("tp",)
+
+def _spec_axis_names(spec) -> set:
+    """The mesh axes a partition spec mentions (entries are None, a
+    name, or a tuple of names)."""
+    names: set = set()
+    for entry in spec or ():
+        if isinstance(entry, (tuple, list)):
+            names.update(e for e in entry if e)
+        elif entry is not None:
+            names.add(entry)
+    return names
+
+
+def _tree_map(fn, tree, *rest):
+    """fn over the leaves of nested dicts (specs are tuples: leaves)."""
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, tree[k], *(r[k] for r in rest))
+                for k in tree}
+    return fn(tree, *rest)
+
+
+def grad_axes_from_specs(param_specs: Any, mesh) -> Any:
+    """Per leaf, the live axes (size > 1) its spec does not mention, in
+    mesh order: the axes its gradient is reduced over. A leaf replicated
+    over an axis holds a partial gradient there (a batch axis, or a
+    model axis its shard is copied over); an axis it is sharded over
+    contributes no sum, its shard's gradient lives on its owners alone.
+    Computed from the spec tree, this is models/transformer.py
+    grad_reduce_axes (the JAX function, same rule)."""
+    sizes = mesh_mod.mesh_axis_sizes(mesh)
+    live = tuple(a for a in mesh.axis_names if sizes[a] > 1)
+    return _tree_map(lambda spec: tuple(
+        a for a in live if a not in _spec_axis_names(spec)), param_specs)
+
+
+def opt_state_specs(opt_state: Any, params: Any, param_specs: Any) -> Any:
+    """Per-leaf specs of an optimizer state held by parameter name
+    ({name: {"exp_avg": t, "step": t, ...}}, as `named_state` gives it):
+    a state leaf of its parameter's shape takes the parameter's spec
+    (Adam's moments, SGD's momentum), anything else (the step count) is
+    replicated. The JAX function matches state leaves to parameters by
+    (shape, dtype); a torch optimizer keys its state by parameter, so
+    no match is ambiguous."""
+    def leaf(x, name):
+        return param_specs[name] if tuple(getattr(x, "shape", ())) == \
+            tuple(params[name].shape) else ()
+    return {name: {k: leaf(v, name) for k, v in st.items()}
+            for name, st in opt_state.items()}
+
+
+def named_state(opt, named_parameters) -> Dict[str, Dict[str, Any]]:
+    """The torch optimizer's per-parameter state by parameter name (the
+    tree a sharded checkpoint saves)."""
+    return {n: dict(opt.state[p]) for n, p in named_parameters
+            if p in opt.state}
+
+
+def load_named_state(opt, named_parameters, state) -> None:
+    """Install `named_state`'s tree (host tensors) into the optimizer,
+    each tensor onto its parameter's device."""
+    for n, p in named_parameters:
+        if n in state:
+            opt.state[p] = {k: (v.to(p.device) if torch.is_tensor(v) and
+                                v.dim() else v)
+                            for k, v in state[n].items()}
 
 
 def scale_factors(op: T.ReduceOp, k: int, gradient_predivide_factor: float
@@ -149,7 +238,10 @@ def _post_accumulate_hook(ref, p: torch.Tensor) -> None:
 
 class DistributedOptimizer:
     """Wraps a torch.optim.Optimizer so that `step()` applies gradients
-    reduced over the members of `process_set` (default every rank)."""
+    reduced over the members of `process_set` (default every rank), or,
+    with `sharding_spec` ({parameter name: partition spec}) on `mesh`
+    (default the HOROVOD_MESH mesh), over the axes each parameter's
+    shard is replicated on (the sharded step, module docstring)."""
 
     def __init__(self, optimizer: torch.optim.Optimizer,
                  named_parameters=None, compression=Compression.none,
@@ -157,7 +249,9 @@ class DistributedOptimizer:
                  op: T.ReduceOp = T.Average,
                  gradient_predivide_factor: float = 1.0,
                  sparse_as_dense: bool = False, groups=None,
-                 process_set: Optional[ProcessSet] = None):
+                 process_set: Optional[ProcessSet] = None,
+                 sharding_spec: Optional[Dict[str, tuple]] = None,
+                 mesh=None):
         self.opt = optimizer
         self.op = T.normalize_reduce_op(op)
         if gradient_predivide_factor != 1.0 and self.op != T.Average:
@@ -182,6 +276,7 @@ class DistributedOptimizer:
         params = [p for g in optimizer.param_groups for p in g["params"]
                   if p.requires_grad]
         if named_parameters is not None:
+            named_parameters = list(named_parameters)  # may be a generator
             order = [p for _, p in named_parameters if p.requires_grad]
             if {id(p) for p in order} != {id(p) for p in params}:
                 raise ValueError("named_parameters must cover exactly the "
@@ -196,7 +291,11 @@ class DistributedOptimizer:
         # Collective calls of the last reduction: one per bucket, one per
         # tensor for Adasum, two allgathers per sparse gradient.
         self.collectives_per_step = 0
-        self.hooked = groups is None and self.op != T.ReduceOp.ADASUM
+        self.sharding_spec = sharding_spec
+        self.hooked = groups is None and self.op != T.ReduceOp.ADASUM \
+            and sharding_spec is None
+        if sharding_spec is not None:
+            self._init_sharded(named_parameters, mesh)
         self.plan: List[fusion.Bucket] = []
         self._members: List[List[int]] = []
         self._reset()
@@ -213,6 +312,131 @@ class DistributedOptimizer:
         # Parameters that outlive this optimizer drop its hooks.
         for h in self.__dict__.get("_hooks", ()):
             h.remove()
+
+    # ------------------------------------------------------ sharded step
+
+    def _init_sharded(self, named_parameters, mesh) -> None:
+        """The sharded step's per-parameter reduce axes, and their
+        process sets registered now, on every rank in one order."""
+        if named_parameters is None:
+            raise ValueError("sharding_spec needs named_parameters: the "
+                             "spec is keyed by parameter name")
+        if self.op not in (T.ReduceOp.SUM, T.ReduceOp.AVERAGE) or \
+                self.groups is not None:
+            raise ValueError("the sharded step reduces with Sum or Average "
+                             "and takes no groups")
+        m = mesh if mesh is not None else mesh_mod.current_mesh()
+        if m is None:
+            raise ValueError(
+                "sharding_spec needs a hybrid mesh: set HOROVOD_MESH (e.g. "
+                "\"dp=2,tp=4\") before hvd.init(), or pass mesh=")
+        self.mesh = m
+        self.names = [n for n, p in named_parameters if p.requires_grad]
+        if len(self.names) != len(self.params):
+            raise ValueError("named_parameters must name every parameter")
+        missing = [n for n in self.names if n not in self.sharding_spec]
+        if missing:
+            raise ValueError(f"sharding_spec has no spec for {missing[:4]}")
+        axes = grad_axes_from_specs(
+            {n: self.sharding_spec[n] for n in self.names}, m)
+        self._axes = [axes[n] for n in self.names]
+        sizes = mesh_mod.mesh_axis_sizes(m)
+        self._redundant = math.prod(sizes[a] for a in REDUNDANT_LOSS_AXES)
+        self._axis_sets = {ax: mesh_mod.axes_process_set(ax, m)
+                           for ax in dict.fromkeys(self._axes)}
+        self._set_batch_spec(("dp",))
+
+    def _set_batch_spec(self, batch_spec) -> None:
+        """The live axes the batch shards over (`batch_spec` a partition
+        spec): the axes the gradients average over."""
+        sizes = mesh_mod.mesh_axis_sizes(self.mesh)
+        self._mean_axes = tuple(a for a in self.mesh.axis_names
+                                if a in _spec_axis_names(batch_spec)
+                                and sizes[a] > 1)
+
+    def _synchronize_sharded(self) -> Dict[str, int]:
+        """/tp, then one grouped all-reduce for each distinct axis set;
+        returns the bytes reduced by axis-set label."""
+        self._prepare_grads()
+        sizes = mesh_mod.mesh_axis_sizes(self.mesh)
+        grads = [p.grad for p in self.params]
+        if self._redundant != 1:
+            for g in grads:
+                g.div_(self._redundant)
+        by_axes: Dict[tuple, List[int]] = {}
+        for i, ax in enumerate(self._axes):
+            by_axes.setdefault(ax, []).append(i)
+        nbytes: Dict[str, int] = {}
+        calls = 0
+        for ax, idx in by_axes.items():
+            ps = self._axis_sets[ax]
+            if ps is None:
+                continue  # sharded over every live axis: nothing to sum
+            k = math.prod(sizes[a] for a in ax if a in self._mean_axes)
+            pre, post, rop = scale_factors(self.op, k,
+                                           self.gradient_predivide_factor)
+            pairs = [self.compression.compress(grads[i]) for i in idx]
+            wires = [w for w, _ in pairs]
+            out = collectives.grouped_allreduce(
+                wires, op=T.Sum, prescale_factor=pre, postscale_factor=post,
+                process_set=ps)
+            for i, r, (_, ctx) in zip(idx, out, pairs):
+                r = self.compression.decompress(r, ctx)
+                grads[i].copy_(r / k if rop == T.ReduceOp.AVERAGE and k != 1
+                               else r)
+            calls += self._calls([self.params[i] for i in idx], wires)
+            nbytes["+".join(ax)] = sum(w.numel() * w.element_size()
+                                       for w in wires)
+        self.collectives_per_step = calls
+        return nbytes
+
+    def sharded_step(self, loss_fn: Callable, batch_spec=None,
+                     loss_axes: Optional[Tuple[str, ...]] = None
+                     ) -> Callable:
+        """The sharded train step: `step(batch) -> loss`. `loss_fn(params,
+        batch)` is the shard-local loss (params: {name: this rank's
+        shard}; `batch` this rank's shard of the batch), run with axis
+        names resolved against this optimizer's mesh: it returns the
+        LOCAL batch shard's loss, not reduced over the batch axes, and
+        over the model axes the same value on every member (see the
+        module docstring). `batch_spec` (default ("dp",)) names the
+        batch axes the gradients average over. The loss returned is
+        reduced over `loss_axes` (default the batch axes): averaged
+        under op Average, summed under Sum. The JAX step's contract."""
+        if self.sharding_spec is None:
+            raise ValueError("sharded_step requires DistributedOptimizer("
+                             "sharding_spec=<{name: partition spec}>)")
+        self._set_batch_spec(("dp",) if batch_spec is None else batch_spec)
+        sizes = mesh_mod.mesh_axis_sizes(self.mesh)
+        axes = self._mean_axes if loss_axes is None else tuple(
+            a for a in self.mesh.axis_names if a in loss_axes and
+            sizes[a] > 1)
+        loss_set = mesh_mod.axes_process_set(axes, self.mesh)
+        named = dict(zip(self.names, self.params))
+        mean = self.op == T.ReduceOp.AVERAGE
+
+        def step(batch):
+            self.zero_grad()
+            with mesh_mod.use_mesh(self.mesh):
+                loss = loss_fn(named, batch)
+                loss.backward()
+                self.step()
+            loss = loss.detach()
+            if loss_set is not None:
+                loss = collectives.allreduce(
+                    loss, op=T.Average if mean else T.Sum,
+                    name="sharded_step.loss", process_set=loss_set)
+            return loss
+
+        return step
+
+    def shard_params(self, params: Dict[str, Any]) -> Dict[str, Any]:
+        """This rank's shard of each global leaf of `params` under this
+        optimizer's spec (the spec-driven device_put of the JAX step)."""
+        if self.sharding_spec is None:
+            raise ValueError("shard_params requires sharding_spec")
+        return {n: mesh_mod.shard_of(v, self.sharding_spec[n], self.mesh)
+                for n, v in params.items()}
 
     # ------------------------------------------------------------ plans
 
@@ -472,6 +696,10 @@ class DistributedOptimizer:
         path, reduce them now (perfscope's `comms` phase)."""
         scope = perfscope.get()
         with scope.phase("comms"):
+            if self.sharding_spec is not None:
+                scope.set_comms_axes(self._synchronize_sharded())
+                self._synchronized = True
+                return
             nbytes = self._synchronize_hooked() if self.hooked \
                 else self._synchronize_at_step()
         axis = "hvd" if self.process_set.ranks is None \
@@ -513,3 +741,29 @@ class DistributedOptimizer:
 
     def load_state_dict(self, state_dict) -> None:
         self.opt.load_state_dict(state_dict)
+
+
+def build_sharded_train_step(loss_fn: Callable,
+                             optimizer: torch.optim.Optimizer,
+                             named_parameters, mesh=None,
+                             param_specs: Optional[Dict[str, tuple]] = None,
+                             batch_spec=None, op: T.ReduceOp = T.Average,
+                             compression=Compression.none,
+                             gradient_predivide_factor: float = 1.0,
+                             loss_axes: Optional[Tuple[str, ...]] = None
+                             ) -> Callable:
+    """The sharded train step over `mesh` (default the HOROVOD_MESH
+    mesh) for parameters that follow `param_specs` ({name: partition
+    spec}): `step(batch) -> loss`, through
+    DistributedOptimizer(sharding_spec=...).sharded_step (its docstring
+    has the contract for `loss_fn`)."""
+    if param_specs is None:
+        raise ValueError("build_sharded_train_step requires param_specs "
+                         "({name: partition spec})")
+    named_parameters = list(named_parameters)
+    opt = DistributedOptimizer(
+        optimizer, named_parameters=named_parameters, op=op,
+        compression=compression,
+        gradient_predivide_factor=gradient_predivide_factor,
+        sharding_spec=param_specs, mesh=mesh)
+    return opt.sharded_step(loss_fn, batch_spec, loss_axes)

@@ -23,16 +23,27 @@ one group, so the five axes of a 4-rank mesh cost at most one group
 per distinct rank list. `new_group` is collective over the world, so
 every rank builds every axis's groups, in AXIS_ORDER and then in group
 order, members or not; `hvd.init()` does it once under HOROVOD_MESH.
+
+Where the JAX package names an axis inside `shard_map`, the port names
+it against the mesh in force: `use_mesh(mesh)` makes `mesh` the one
+`axes_process_set` resolves names against on this thread (as shard_map's mesh
+does for `lax.psum`), else the HOROVOD_MESH mesh of `hvd.init()`. An
+axis of size 1, or no mesh at all, has no set: the collectives over it
+are identities, as JAX's are over a size-1 axis. `shard_of` cuts this
+rank's block of a global array under a partition spec, the block
+`jax.device_put(x, NamedSharding(mesh, spec))` places on its device.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import itertools
 import math
 import os
 import re
-from typing import Dict, List, Optional, Tuple
+import threading
+from typing import Dict, Iterable, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
@@ -172,9 +183,10 @@ class MeshSpec:
             groups.append(group)
         return groups
 
-    def group_of(self, axis: str, rank: int) -> List[int]:
-        """The ranks sharing `rank`'s sub-communicator along `axis` (rank
-        included), in mesh order."""
+    def group_of(self, axis: Union[str, Iterable[str]],
+                 rank: int) -> List[int]:
+        """The ranks sharing `rank`'s sub-communicator along `axis` (an
+        axis name or a set of them; rank included), in mesh order."""
         for g in self.axis_groups(axis):
             if rank in g:
                 return g
@@ -201,10 +213,19 @@ class Mesh:
     spec: MeshSpec
     devices: np.ndarray
     axis_names: Tuple[str, ...] = AXIS_ORDER
+    # This rank's process set of each axis tuple looked up so far
+    # (axes_process_set): a layer's collectives look theirs up each call.
+    _sets: Dict[Tuple[str, ...], object] = dataclasses.field(
+        default_factory=dict, compare=False, repr=False)
 
     @property
     def shape(self) -> Dict[str, int]:
         return dict(zip(self.axis_names, self.devices.shape))
+
+    def coords(self, rank: int) -> Dict[str, int]:
+        """Rank `rank`'s index along each axis."""
+        idx = np.unravel_index(rank, self.devices.shape)
+        return {a: int(i) for a, i in zip(self.axis_names, idx)}
 
 
 def build_mesh(spec: MeshSpec) -> Mesh:
@@ -239,3 +260,127 @@ def slice_groups(n_devices: int, slices: int) -> List[List[int]]:
             f"{n_devices}-device world into equal slices")
     per = n_devices // slices
     return [list(range(s * per, (s + 1) * per)) for s in range(slices)]
+
+
+# ------------------------------------------------- axes in the code
+
+_active = threading.local()
+
+
+@contextlib.contextmanager
+def use_mesh(mesh: Optional[Mesh]):
+    """Resolve axis names against `mesh` on this thread inside the block
+    (the port's shard_map scope); None: the HOROVOD_MESH mesh."""
+    prev = getattr(_active, "mesh", None)
+    _active.mesh = mesh
+    try:
+        yield mesh
+    finally:
+        _active.mesh = prev
+
+
+def current_mesh() -> Optional[Mesh]:
+    """The mesh of the innermost `use_mesh`, else `hvd.hybrid_mesh()`,
+    else None (no world, or a data-parallel one)."""
+    m = getattr(_active, "mesh", None)
+    if m is not None:
+        return m
+    from horovod_tpu_torch.core import topology
+    return topology.hybrid_mesh() if topology.is_initialized() else None
+
+
+def axis_sizes(mesh: Optional[Mesh] = None) -> Dict[str, int]:
+    """Every axis's size on `mesh` (default current_mesh(); 1 for each
+    without one)."""
+    m = mesh if mesh is not None else current_mesh()
+    return mesh_axis_sizes(m) if m is not None else {a: 1 for a in
+                                                      AXIS_ORDER}
+
+
+def axis_index(axis: str, mesh: Optional[Mesh] = None) -> int:
+    """This rank's index along `axis` (`lax.axis_index`); 0 without a
+    mesh."""
+    m = mesh if mesh is not None else current_mesh()
+    if m is None:
+        return 0
+    from horovod_tpu_torch.core import topology
+    return m.coords(topology.rank())[axis]
+
+
+def axes_process_set(axes: Union[str, Sequence[str]],
+                     mesh: Optional[Mesh] = None):
+    """This rank's process set over `axes` (one name or several) of
+    `mesh` (default current_mesh()), or None where they span one rank.
+    A set not registered yet is registered with every group of the same
+    axes first, which is collective over the world: call it at the same
+    point on every rank (a single axis's groups were registered by
+    build_mesh, so for one axis this only looks the set up)."""
+    m = mesh if mesh is not None else current_mesh()
+    if m is None:
+        return None
+    names = (axes,) if isinstance(axes, str) else tuple(axes)
+    sizes = mesh_axis_sizes(m)
+    if math.prod(sizes[a] for a in names) == 1:
+        return None
+    if names in m._sets:
+        return m._sets[names]
+    from horovod_tpu_torch.core import process_sets, topology
+    table = process_sets._table()
+    mine = None
+    for group in m.spec.axis_groups(names):
+        ps = process_sets.ProcessSet(group)
+        table.register(ps)
+        if topology.rank() in group:
+            mine = ps
+    m._sets[names] = mine
+    return mine
+
+
+def _spec_names(entry) -> Tuple[str, ...]:
+    if entry is None:
+        return ()
+    return tuple(entry) if isinstance(entry, (tuple, list)) else (entry,)
+
+
+def shard_index(spec, shape: Sequence[int], mesh: Mesh, rank: int
+                ) -> Tuple[slice, ...]:
+    """The slices of a global array of `shape` that rank `rank` holds
+    under partition spec `spec` (one entry per leading dim: None, an axis
+    name or a tuple of names, major first; missing trailing entries are
+    None), as NamedSharding lays it out. A spec with one entry more than
+    the array has dims leads with the axis of a stack the caller split
+    already (the per-layer leaves of a pipelined model): that entry is
+    skipped."""
+    spec = tuple(spec or ())
+    if len(spec) == len(shape) + 1:
+        spec = spec[1:]
+    if len(spec) > len(shape):
+        raise HorovodError(f"partition spec {spec} has more entries than "
+                           f"the array's {len(shape)} dims")
+    sizes, at = mesh_axis_sizes(mesh), mesh.coords(rank)
+    out = []
+    for d, n in enumerate(shape):
+        names = _spec_names(spec[d]) if d < len(spec) else ()
+        parts, idx = 1, 0
+        for a in names:
+            parts, idx = parts * sizes[a], idx * sizes[a] + at[a]
+        if n % parts:
+            raise HorovodError(f"dim {d} of size {n} does not split over "
+                               f"{names} ({parts} parts)")
+        step = n // parts
+        out.append(slice(idx * step, (idx + 1) * step))
+    return tuple(out)
+
+
+def shard_of(x, spec, mesh: Optional[Mesh] = None, rank: Optional[int] = None):
+    """Rank `rank`'s (default this rank's) block of the global array `x`
+    under `spec` on `mesh` (default current_mesh()): a copy, so that the
+    global array can go; `x` itself where no mesh is in force."""
+    m = mesh if mesh is not None else current_mesh()
+    if m is None:
+        return x
+    if rank is None:
+        from horovod_tpu_torch.core import topology
+        rank = topology.rank()
+    block = x[shard_index(spec, tuple(x.shape), m, rank)]
+    return block.clone() if hasattr(block, "clone") else np.array(block)

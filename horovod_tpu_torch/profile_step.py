@@ -2,12 +2,14 @@
 
     python -m horovod_tpu_torch.profile_step [--batch-size 32] [--steps 3]
     python -m horovod_tpu_torch.profile_step --model lm [--steps 3]
+        [--num-experts E] [--microbatches M] [--remat [--remat-policy P]]
 
 --model resnet50 (the default) trains ResNet-50 (224², bf16) on one GPU
 as synthetic_benchmark does, for each route (HOROVOD_CONV_BLOCK=1,
 HOROVOD_FUSE_CONV_BN=1, neither); --model lm trains the transformer LM
 at the bench's flagship width (L12 D2048 F8192 H16 S1024 B12 V32768,
-bf16, attn="flash") as transformer_lm does. Each times `--steps` steps
+bf16, attn="flash") as transformer_lm does, with transformer_lm's
+--num-experts, --microbatches and --remat flags. Each times `--steps` steps
 after warm-up, then `--steps` more with torch.profiler tracing the
 device only, and prints the wall time per step of both, the device's
 busy share (the union of kernel intervals over the traced steps' wall
@@ -98,6 +100,11 @@ def main(argv=None):
                    help="default: 32 for resnet50, 12 for lm")
     p.add_argument("--image-size", type=int, default=224)
     p.add_argument("--steps", type=int, default=3)
+    p.add_argument("--num-experts", type=int, default=0)
+    p.add_argument("--microbatches", type=int, default=1)
+    p.add_argument("--remat", action="store_true")
+    p.add_argument("--remat-policy", default="dots",
+                   choices=list(tfm.REMAT_POLICIES))
     args = p.parse_args(argv)
     hvd.init()
     try:
@@ -106,14 +113,21 @@ def main(argv=None):
                "model": args.model}
         if args.model == "lm":
             batch = args.batch_size or lm.FLAGSHIP_BATCH
-            cfg = tfm.TransformerConfig(**lm.FLAGSHIP, attn="flash",
-                                        dtype=torch.bfloat16)
+            cfg = tfm.TransformerConfig(
+                **lm.FLAGSHIP, attn="flash", dtype=torch.bfloat16,
+                num_experts=args.num_experts,
+                microbatches=args.microbatches, remat=args.remat,
+                remat_policy=args.remat_policy)
             seq = cfg.max_seq
-            model, opt = lm.build(cfg, dev)
+            _, _, step = lm.build(cfg, dev)
             data = lm.make_batch(batch, seq, cfg.vocab, dev, seed=hvd.rank())
-            out.update(batch=batch, seq=seq)
+            out.update(batch=batch, seq=seq,
+                       config=dict(num_experts=cfg.num_experts,
+                                   microbatches=cfg.microbatches,
+                                   remat=cfg.remat,
+                                   remat_policy=cfg.remat_policy))
             out["flash"] = profile_route(
-                lambda: lm.train_step(model, opt, data), args.steps)
+                lambda: step(data), args.steps)
             _print("lm flash", out["flash"])
             name = "profile_step_lm.json"
         else:

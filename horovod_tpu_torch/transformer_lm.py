@@ -1,16 +1,26 @@
-"""Transformer LM training over dp and sp, PyTorch twin of
+"""Transformer LM training over the HOROVOD_MESH mesh, PyTorch twin of
 examples/transformer_lm.py and of bench.py's transformer section.
 
 Each process trains on its own GPU: hvd.init(), the LM at the given
-width and depth with random weights from a seed, broadcast of rank 0's
-weights, DistributedOptimizer over Adam(lr 1e-3) (optax.adam(1e-3) in
-the JAX bench) with the bucketed all-reduce over the whole world. The
-tokens shard over (dp, sp): each dp replica draws `--batch-size`
-sequences of `--seq-len` tokens from the seed of its dp index, the
-targets are the global roll(tokens, -1) along the sequence, and each
-rank of the replica's sp group keeps its contiguous slice of both, cut
-after the roll (a roll of each slice would give each slice's last
-position the wrong target). Prints tokens/s over the global batch,
+width and depth with random weights from a seed, Adam(lr 1e-3)
+(optax.adam(1e-3) in the JAX bench). Two ways to reduce:
+- a data-parallel world (no mesh, or one whose tp, pp and ep are 1):
+  rank 0's weights broadcast, DistributedOptimizer with the bucketed
+  all-reduce over the whole world, each rank's loss the mean over its
+  tokens;
+- tp, pp or ep above 1: each rank builds its shard of the seed's
+  weights, and DistributedOptimizer(sharding_spec=..., op=Sum) runs the
+  sharded step on the LM's local_loss (the JAX build_train_step: every
+  gradient over tp, then summed over the axes its leaf is replicated
+  on).
+The tokens shard over (dp, ep) and sp, as the JAX bspec P(("dp", "ep"),
+"sp") cuts them: each data block (dp, ep) draws `--batch-size`
+sequences of `--seq-len` tokens from the seed of its block index
+dp·ep_size + ep, the targets are the global roll(tokens, -1) along the
+sequence, and each rank of the block's sp group keeps its contiguous
+slice of both, cut after the roll (a roll of each slice would give each
+slice's last position the wrong target). The tp and pp members of a
+block hold the same tokens. Prints tokens/s over the global batch,
 ms/step, the share of the cards' peak that the model FLOPs reach, and
 the world's mean loss.
 
@@ -21,10 +31,16 @@ Run:  python -m horovod_tpu_torch.transformer_lm --attn flash
       python -m horovod_tpu_torch.runner.launch -np 4 \\
           python -m horovod_tpu_torch.transformer_lm --attn ring --sp 4
 
-Sequence parallelism: `--sp N` sets HOROVOD_MESH="sp=N" (dp takes the
-other ranks) where the variable is unset, and must agree with it where
-it is set; `--attn ring|ulysses` attends across the sp group. `--tp`,
-`--pp` and `--ep` above 1 are refused (ROADMAP A11 part 2).
+      python -m horovod_tpu_torch.runner.launch -np 4 \\
+          python -m horovod_tpu_torch.transformer_lm --pp 2 --tp 2 \\
+          --microbatches 2 --remat
+
+The mesh: `--sp`, `--tp`, `--pp` and `--ep` set HOROVOD_MESH (dp takes
+the other ranks) where the variable is unset, and must agree with it
+where it is set; `--attn ring|ulysses` attends across the sp group,
+`--num-experts E` makes every FFN a top-1 MoE of E experts over ep,
+`--microbatches M` runs the pipeline (needed where pp > 1), `--remat`
+recomputes each layer in the backward pass under `--remat-policy`.
 --device cpu runs on the host with gloo (no kernel: the plain versions).
 """
 
@@ -33,12 +49,14 @@ from __future__ import annotations
 import argparse
 import os
 import time
+from typing import Optional
 
 import torch
 
 import horovod_tpu_torch as hvd
 from horovod_tpu_torch.common.exceptions import HorovodError
 from horovod_tpu_torch.models import transformer as tfm
+from horovod_tpu_torch.parallel.mesh import axis_sizes
 from horovod_tpu_torch.profiler import flops as F
 
 # bench.py's flagship LM (bench_transformer): the width chip_smoke.py
@@ -62,39 +80,97 @@ def parse_args(argv=None):
     p.add_argument("--steps", type=int, default=10)
     p.add_argument("--warmup", type=int, default=2)
     p.add_argument("--attn", default="flash", choices=list(tfm.ATTN))
-    p.add_argument("--sp", type=int, default=None,
-                   help="sequence-parallel ranks (HOROVOD_MESH sp)")
-    for axis in ("tp", "pp", "ep"):
-        p.add_argument(f"--{axis}", type=int, default=1,
-                       help="not ported (ROADMAP A11 part 2): 1 only")
+    for axis, what in MESH_FLAGS.items():
+        p.add_argument(f"--{axis}", type=int, default=None,
+                       help=f"{what} ranks (HOROVOD_MESH {axis})")
+    p.add_argument("--num-experts", type=int, default=0,
+                   help="experts of every layer's MoE FFN (0: dense)")
+    p.add_argument("--microbatches", type=int, default=1,
+                   help="pipeline microbatches (> 1 where pp > 1)")
+    p.add_argument("--remat", action="store_true",
+                   help="recompute each layer in the backward pass")
+    p.add_argument("--remat-policy", default="dots",
+                   choices=list(tfm.REMAT_POLICIES))
     p.add_argument("--dtype", default="bfloat16",
                    choices=["float32", "bfloat16"])
     p.add_argument("--device", default=None, choices=["cpu"],
                    help="cpu: train on the host with gloo")
-    args = p.parse_args(argv)
-    for axis in ("tp", "pp", "ep"):
-        if getattr(args, axis) != 1:
-            p.error(f"--{axis} {getattr(args, axis)}: the {axis} axis is "
-                    f"not ported to PyTorch yet (ROADMAP A11 part 2)")
-    return args
+    return p.parse_args(argv)
+
+
+#: The mesh flags and what their ranks do.
+MESH_FLAGS = {"sp": "sequence-parallel", "tp": "tensor-parallel",
+              "pp": "pipeline-stage", "ep": "expert-parallel"}
+
+
+def mesh_env(args) -> Optional[str]:
+    """The HOROVOD_MESH the flags ask for ("tp=2,pp=2"), or None where
+    none is given."""
+    parts = [f"{a}={getattr(args, a)}" for a in MESH_FLAGS
+             if getattr(args, a) is not None]
+    return ",".join(parts) if parts else None
+
+
+def check_mesh_flags(args) -> None:
+    """Each mesh flag given must agree with the mesh in force."""
+    spec = hvd.mesh_spec()
+    for axis in MESH_FLAGS:
+        want = getattr(args, axis)
+        got = getattr(spec, axis) if spec is not None else 1
+        if want is not None and want != got:
+            raise HorovodError(
+                f"--{axis} {want} disagrees with HOROVOD_MESH="
+                f"{os.environ.get('HOROVOD_MESH')!r} ({axis}={got})")
 
 
 def config(args) -> tfm.TransformerConfig:
     return tfm.TransformerConfig(
         vocab=args.vocab, d_model=args.d_model, n_heads=args.n_heads,
         d_ff=args.d_ff or 4 * args.d_model, n_layers=args.n_layers,
-        max_seq=args.seq_len, attn=args.attn,
+        max_seq=args.seq_len, attn=args.attn, num_experts=args.num_experts,
+        microbatches=args.microbatches,
+        remat=args.remat, remat_policy=args.remat_policy,
         dtype=torch.bfloat16 if args.dtype == "bfloat16" else torch.float32)
 
 
+def sharded(mesh) -> bool:
+    """Whether the LM runs the sharded step on `mesh`: tp, pp or ep > 1."""
+    return mesh is not None and any(mesh.shape[a] > 1
+                                    for a in ("tp", "pp", "ep"))
+
+
 def build(cfg: tfm.TransformerConfig, device, seed: int = 0):
-    """(model, optimizer) for one rank, rank 0's weights broadcast."""
+    """(model, optimizer, step) for one rank; `step(batch)` trains one
+    step and returns the loss (world_loss makes it the world's).
+    Data-parallel: rank 0's weights broadcast, the bucketed hook path.
+    Sharded: the rank's shard of the seed's weights, the optimizer's
+    sharded step on the LM's local_loss."""
     model = tfm.TransformerLM(cfg, seed=seed, device=device)
-    hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+    inner = torch.optim.Adam(model.parameters(), lr=1e-3)
+    if not sharded(model.mesh):
+        hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+        opt = hvd.DistributedOptimizer(
+            inner, named_parameters=model.named_parameters())
+
+        def step(batch) -> torch.Tensor:
+            opt.zero_grad()
+            loss = tfm.loss_fn(model, *batch)
+            loss.backward()
+            opt.step()
+            return loss.detach()
+        return model, opt, step
     opt = hvd.DistributedOptimizer(
-        torch.optim.Adam(model.parameters(), lr=1e-3),
-        named_parameters=model.named_parameters())
-    return model, opt
+        inner, named_parameters=model.named_parameters(), op=hvd.Sum,
+        sharding_spec=tfm.named_specs(model), mesh=model.mesh)
+    return model, opt, opt.sharded_step(
+        lambda _, batch: tfm.local_loss(model, *batch),
+        batch_spec=BATCH_SPEC, loss_axes=LOSS_AXES)
+
+
+#: How the tokens shard (the JAX bspec), and the axes the local_loss
+#: values sum over to the global mean.
+BATCH_SPEC = (("dp", "ep"), "sp")
+LOSS_AXES = ("dp", "ep", "sp", "pp")
 
 
 def make_batch(batch: int, seq: int, vocab: int, device, seed: int):
@@ -106,18 +182,19 @@ def make_batch(batch: int, seq: int, vocab: int, device, seed: int):
 
 
 def coords():
-    """(dp index, sp index, sp size) of this rank: its coordinates on the
+    """(data block index, sp index, sp size) of this rank: its block
+    dp·ep_size + ep over (dp, ep) and its sp coordinates on the
     HOROVOD_MESH mesh, or (rank, 0, 1) in a data-parallel world."""
-    if hvd.mesh_spec() is None:
+    mesh = hvd.hybrid_mesh()
+    if mesh is None:
         return hvd.rank(), 0, 1
-    sp = hvd.axis_process_set("sp")
-    dp = hvd.axis_process_set("dp")
-    return dp.rank_index(hvd.rank()), sp.rank_index(hvd.rank()), sp.size()
+    at, size = mesh.coords(hvd.rank()), mesh.shape
+    return at["dp"] * size["ep"] + at["ep"], at["sp"], size["sp"]
 
 
 def rank_batch(batch: int, seq: int, vocab: int, device):
-    """This rank's (tokens, targets): its dp replica's batch from the
-    replica's seed, the targets rolled over the whole sequence, then the
+    """This rank's (tokens, targets): its data block's batch from the
+    block's seed, the targets rolled over the whole sequence, then the
     rank's sp slice of both."""
     dp_i, sp_i, sp_n = coords()
     if seq % sp_n:
@@ -128,19 +205,11 @@ def rank_batch(batch: int, seq: int, vocab: int, device):
             targets[:, sp_i * n:(sp_i + 1) * n].contiguous())
 
 
-def train_step(model, opt, batch) -> torch.Tensor:
-    """One step; returns this rank's loss (the mean over its tokens)."""
-    opt.zero_grad()
-    loss = tfm.loss_fn(model, *batch)
-    loss.backward()
-    opt.step()
-    return loss.detach()
-
-
 def world_loss(loss: torch.Tensor) -> float:
     """The loss over the global batch: the mean of the ranks' losses,
     whose token counts are equal (the JAX step's psum of the local
-    contributions)."""
+    contributions). The sharded step's loss is the world's on every
+    rank already, so its mean is itself."""
     return float(hvd.allreduce(loss, op=hvd.Average))
 
 
@@ -172,41 +241,45 @@ def run(cfg: tfm.TransformerConfig, batch: int, warmup: int, steps: int,
     (report), this rank's launches of kernels 4–6 over all the steps
     (counted from 0 here) and its peak device memory."""
     from horovod_tpu_torch.ops import flash_attention as fa
-    tfm.validate_cfg_for_mesh(cfg, hvd.hybrid_mesh())
     dev = hvd.device()
-    model, opt = build(cfg, dev, seed)
+    _, _, step = build(cfg, dev, seed)
     data = rank_batch(batch, cfg.max_seq, cfg.vocab, dev)
     cuda = dev.type == "cuda"
     if cuda:
         torch.cuda.reset_peak_memory_stats(dev)
     for f in (fa.flash_fwd, fa.flash_bwd_dkdv, fa.flash_bwd_dq):
         f.launches = 0
-    losses = [train_step(model, opt, data) for _ in range(warmup)]
+    losses = [step(data) for _ in range(warmup)]
     if cuda:
         torch.cuda.synchronize()
     t0 = time.perf_counter()
-    losses += [train_step(model, opt, data) for _ in range(steps)]
+    losses += [step(data) for _ in range(steps)]
     if cuda:
         torch.cuda.synchronize()
     step_s = (time.perf_counter() - t0) / max(steps, 1)
     launches = _flash_launches()
     name = torch.cuda.get_device_name(dev) if cuda else "cpu"
-    sp = coords()[2]
-    return dict(losses=[world_loss(v) for v in losses], launches=launches,
+    sizes = axis_sizes()
+    return dict(losses=[world_loss(v) for v in losses],
+                launches=launches,
                 peak_mem_gb=(torch.cuda.max_memory_allocated(dev) / 1e9
                              if cuda else None), device=name,
-                world=hvd.size(), sp=sp,
-                **report(cfg, hvd.size() // sp * batch, cfg.max_seq, step_s,
-                         name, hvd.size()))
+                world=hvd.size(), sp=sizes["sp"], mesh=sizes,
+                **report(cfg, hvd.size() // (sizes["pp"] * sizes["sp"] *
+                                             sizes["tp"]) * batch,
+                         cfg.max_seq, step_s, name, hvd.size()))
 
 
-def flagship_steps(attn: str, warmup: int = 1, steps: int = 3) -> dict:
+def flagship_steps(attn: str, warmup: int = 1, steps: int = 3,
+                   **cfg_kw) -> dict:
     """`run` at the flagship width and batch in bf16, in the world this
-    process joins (a `runner.run` worker; HOROVOD_MESH from its env)."""
+    process joins (a `runner.run` worker; HOROVOD_MESH from its env),
+    `cfg_kw` the config's other fields (num_experts, microbatches,
+    remat)."""
     hvd.init()
     try:
         cfg = tfm.TransformerConfig(**FLAGSHIP, attn=attn,
-                                    dtype=torch.bfloat16)
+                                    dtype=torch.bfloat16, **cfg_kw)
         return run(cfg, FLAGSHIP_BATCH, warmup, steps)
     finally:
         hvd.shutdown()
@@ -214,14 +287,11 @@ def flagship_steps(attn: str, warmup: int = 1, steps: int = 3) -> dict:
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.sp is not None and not os.environ.get("HOROVOD_MESH"):
-        os.environ["HOROVOD_MESH"] = f"sp={args.sp}"
+    if mesh_env(args) and not os.environ.get("HOROVOD_MESH"):
+        os.environ["HOROVOD_MESH"] = mesh_env(args)
     hvd.init(device=args.device)
     try:
-        sp = coords()[2]
-        if args.sp is not None and args.sp != sp:
-            raise HorovodError(f"--sp {args.sp} disagrees with HOROVOD_MESH="
-                               f"{os.environ['HOROVOD_MESH']!r} (sp={sp})")
+        check_mesh_flags(args)
         cfg = config(args)
         if hvd.rank() == 0:
             n = F.transformer_matmul_params(cfg.d_model, cfg.d_ff,

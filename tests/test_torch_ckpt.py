@@ -47,6 +47,7 @@ from horovod_tpu_torch.ckpt import async_ckpt, manifest as mf, resume, sharded
 from horovod_tpu_torch.common.exceptions import (CheckpointCorruptError,
                                                  HorovodError)
 from horovod_tpu_torch.elastic import TrainLoopState
+from horovod_tpu_torch.parallel import mesh as tmesh
 from horovod_tpu_torch.models import convert
 from horovod_tpu_torch.models import resnet as tresnet
 
@@ -204,8 +205,23 @@ def test_spec_json_roundtrip():
 
 
 def test_reshard_names_its_roadmap_item():
-    with pytest.raises(HorovodError, match="A11"):
-        sharded.reshard({"w": torch.ones(2)}, None, None)
+    """ROADMAP A11's reshard (it raised naming the item until A11 part 2):
+    each rank gets its block of every assembled leaf under the specs of
+    a mesh, replicated leaves and scalars whole, and a dim that does not
+    split over its axes is refused."""
+    spec = tmesh.MeshSpec(dp=2, tp=2)
+    mesh = tmesh.Mesh(spec, np.arange(4).reshape(spec.sizes()))
+    tree = {"emb": torch.arange(8.).view(4, 2), "b": torch.ones(2),
+            "n": 3, "opt": {"step": torch.tensor(5.)}}
+    specs = {"emb": ("tp", None), "b": (), "n": (), "opt": {"step": ()}}
+    for rank, rows in ((0, [0, 1]), (1, [2, 3]), (2, [0, 1]), (3, [2, 3])):
+        got = sharded.reshard(tree, mesh, specs, rank)
+        assert torch.equal(got["emb"], tree["emb"][rows])
+        assert torch.equal(got["b"], tree["b"]) and got["n"] == 3
+        assert torch.equal(got["opt"]["step"], torch.tensor(5.))
+    from horovod_tpu_torch.parallel.mesh import shard_of
+    with pytest.raises(HorovodError, match="does not split"):
+        shard_of(torch.ones(3), ("tp",), mesh, 0)
 
 
 def test_snapshot_is_a_copy():

@@ -365,11 +365,25 @@ def test_skipped_hop_leaves_the_merge_as_the_zero_chunk_would():
     (dict(tp=2), "A11 part 2"), (dict(pp=2), "A11 part 2"),
     (dict(ep=2), "A11 part 2")])
 def test_validate_refuses_the_unported_axes(axes, item):
+    """The tp, pp and ep axes that `item` ported: validate_cfg_for_mesh
+    admits what the JAX function admits (tp=2, ep=2) and refuses what it
+    refuses with its message (pp=2 without microbatches)."""
     spec = tmesh.MeshSpec(**axes)
     mesh = tmesh.Mesh(spec, np.arange(spec.total).reshape(spec.sizes()))
-    with pytest.raises(HorovodError, match=item):
-        ttfm.validate_cfg_for_mesh(
-            ttfm.TransformerConfig(**SMALL, attn="ring"), mesh)
+    jmesh = build_mesh(MeshSpec(**axes), jax.devices()[:spec.total])
+    kw = {**SMALL, "attn": "ring"}
+    try:
+        jtfm.validate_cfg_for_mesh(jtfm.TransformerConfig(**kw), jmesh)
+        want = None
+    except Exception as e:  # noqa: BLE001 - the message is compared
+        want = str(e)
+    if want is None:
+        ttfm.validate_cfg_for_mesh(ttfm.TransformerConfig(**kw), mesh)
+        return
+    assert "pp" in axes, item
+    with pytest.raises(HorovodError) as err:
+        ttfm.validate_cfg_for_mesh(ttfm.TransformerConfig(**kw), mesh)
+    assert str(err.value) == want
 
 
 def test_validate_ulysses_heads_like_jax():
@@ -392,9 +406,12 @@ def test_validate_ulysses_heads_like_jax():
 
 @pytest.mark.parametrize("flag", ["--tp", "--pp", "--ep"])
 def test_lm_entry_refuses_the_unported_axes(flag, capsys):
-    with pytest.raises(SystemExit):
-        tlm.parse_args([flag, "2", "--attn", "ring"])
-    assert "ROADMAP A11 part 2" in capsys.readouterr().err
+    """The axes the entry point refused until ROADMAP A11 part 2: each
+    flag now asks HOROVOD_MESH for its axis."""
+    args = tlm.parse_args([flag, "2", "--attn", "ring"])
+    assert getattr(args, flag[2:]) == 2
+    assert tlm.mesh_env(args) == f"{flag[2:]}=2"
+    assert "ROADMAP" not in capsys.readouterr().err
 
 
 def test_ring_without_a_mesh_names_horovod_mesh():

@@ -31,7 +31,7 @@ def run(rank: int, size: int, store: str, cfg_kw: dict, state: dict,
                                     dtype=torch.float32)
         # Every rank starts from its own random weights; build()
         # broadcasts rank 0's, which are the JAX weights.
-        model, opt = lm.build(cfg, hvd.device(), seed=100 + rank)
+        model, opt, step = lm.build(cfg, hvd.device(), seed=100 + rank)
         if rank == 0:
             with torch.no_grad():
                 for name, p in model.named_parameters():
@@ -42,7 +42,7 @@ def run(rank: int, size: int, store: str, cfg_kw: dict, state: dict,
         tok = torch.from_numpy(tokens[rank * n:(rank + 1) * n].copy())
         batch = (tok, torch.roll(tok, -1, dims=1))
         for i in range(steps):
-            out[f"loss{i}"] = lm.train_step(model, opt, batch).numpy()
+            out[f"loss{i}"] = step(batch).numpy()
         for k, v in model.state_dict().items():
             out[f"state/{k}"] = v.numpy()
     finally:

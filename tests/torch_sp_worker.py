@@ -89,7 +89,7 @@ def run_lm(rank, size, store, cfg_kw, state, tokens, steps, out_path):
             cfg = tfm.TransformerConfig(**cfg_kw, attn=attn,
                                         dtype=torch.float32)
             tfm.validate_cfg_for_mesh(cfg, hvd.hybrid_mesh())
-            model, opt = lm.build(cfg, hvd.device(), seed=100 + rank)
+            model, _, step = lm.build(cfg, hvd.device(), seed=100 + rank)
             if rank == 0:
                 with torch.no_grad():
                     for name, p in model.named_parameters():
@@ -98,7 +98,7 @@ def run_lm(rank, size, store, cfg_kw, state, tokens, steps, out_path):
             with torch.no_grad():
                 out[f"{attn}/logits"] = model(tok).numpy()
             for i in range(steps):
-                loss = lm.train_step(model, opt, (tok, tgt))
+                loss = step((tok, tgt))
                 out[f"{attn}/loss{i}"] = np.asarray(lm.world_loss(loss))
                 if i == 0:
                     for name, p in model.named_parameters():
