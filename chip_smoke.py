@@ -266,6 +266,30 @@ Phases, each fatal on failure:
      losses (TOL_TIED_LOSS), and each step's move of the loss against
      the whole move (TOL_TIED), which must reach TIED_MIN_MOVE; with
      one card it says so.
+ 16. the layout pass, its tuner, hvdrace and hvdlint — ResNet-50 at full
+     width (224², bf16, batch 32, phase 4's seed-0 weights and batch):
+     (a) the plan at the port's lane (64) is as_declared; (b) at lane
+     128 the JAX package's edges pad (the stem and the stage-0 blocks'
+     inner widths, 64→128), every 1x1 site of the padded model takes
+     the Hopper instances, kernels 1–3 at each padded site shape
+     against their plain versions with every padded lane exactly 0,
+     LAYOUT_STEPS SGD-momentum steps through DistributedOptimizer on
+     HOROVOD_CONV_BLOCK=1 against as many as-declared steps from the
+     same weights (losses within TOL_LOSS, 28 launches of kernels 1 and
+     2 a step, every padded lane of the weights, BN parameters, running
+     stats and momentum exactly 0, the stripped weights within
+     TOL_PADDED_STATE, the unfused route's distances printed beside),
+     FUSE_BN_STEPS padded steps on kernel 3's route, and kernels 1 and 2 timed alone at the padded stage-0
+     sites beside their as-declared sites; (c) OnlineLayoutTuner
+     (HOROVOD_LAYOUT_AUTOTUNE=1, interval TUNER_INTERVAL) over both
+     arms, swapping through resnet.relayout: each arm's mean ms a step
+     and the winner (any winner passes), memory within MEM_SWAP_GROWTH
+     across each swap; (d) in a bounded process under HOROVOD_RACE_CHECK=1
+     and HOROVOD_RACE_CHECK_FAIL=1, phase 14's serving engine under
+     requests from RACE_CLIENTS threads and an async checkpoint beside a
+     ResNet-50 step, with no race report and no stale annotation; then
+     `python -m horovod_tpu_torch.analysis horovod_tpu_torch` with the
+     empty baseline exits 0.
 Then the `kernels` JSON line, the card's name and power limit, and last
 {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
 
@@ -4605,6 +4629,546 @@ def parallel_path(lm_out: dict) -> dict:
 
 
 
+# ------------------------------- phase 16: the layout pass, its tuner,
+#                                  hvdrace and hvdlint
+
+# The JAX package's padded edges of ResNet-50 at its lane, 128
+# (horovod_tpu/ops/layout.py over horovod_tpu/models/resnet.py
+# conv_stack): the stem and the stage-0 blocks' inner widths.
+JAX_PADDED_EDGES = {e: (64, 128) for e in (
+    "stem", "s0b0.c1", "s0b0.c2", "s0b1.c1", "s0b1.c2", "s0b2.c1",
+    "s0b2.c2")}
+LAYOUT_STEPS = 3            # (b): padded and as-declared SGD steps
+FUSE_BN_STEPS = 2           # (b): padded steps on kernel 3's route
+# (b): the stripped padded state after LAYOUT_STEPS steps against the
+# as-declared state: for each weight tensor (conv and FC, dim >= 2) max|Δ|
+# over its largest |value|, whose median over the tensors must stay
+# within TOL_PADDED_STATE. The padded model runs the same math in other
+# summation orders (kernels 1-3 at other tile plans, cuDNN's convs and
+# the BN reductions at 128 channels), like the unfused route of the same
+# model (phase 4), and bf16 weights step by bf16-rounded updates: two
+# such runs differ in most tensors by one or two bf16 steps (2^-8 to 2^-7
+# of the largest value) after 3 steps, in a few by more. The BN vectors
+# (zero-initialised biases), running stats and momentum are printed with
+# the unfused route's distances beside them: their gradients at random
+# weights decorrelate between summation orders within 3 steps.
+TOL_PADDED_STATE = 2.0 ** -6
+TUNER_INTERVAL = 5          # (c): steps per arm (2 more are discarded)
+MEM_SWAP_GROWTH = 1.10      # (c): allocated after a swap over before it
+RACE_CLIENTS = 4            # (d): request threads on the engine
+RACE_REQUESTS = 12          # (d): requests per thread
+
+
+def _state_distance(got, got_mom, want, want_mom):
+    """{category: (max, median)} over tensors of max|Δ| / max|want|:
+    weights (dim >= 2), BN vectors, running stats, momentum."""
+    by = {}
+
+    def add(cat, a, b):
+        d = float((a.float() - b.float()).abs().max())
+        by.setdefault(cat, []).append(d / max(float(b.float().abs().max()),
+                                              1e-30))
+    for k, b in want.items():
+        if b.is_floating_point():
+            add("weights" if b.dim() >= 2 else "stats"
+                if k.endswith((".mean", ".var")) else "vectors", got[k], b)
+    for k, b in want_mom.items():
+        add("momentum", got_mom[k], b)
+    return {c: (max(v), sorted(v)[len(v) // 2]) for c, v in by.items()}
+
+
+def _momentum(model, opt):
+    return {n: opt.state[p]["momentum_buffer"]
+            for n, p in model.named_parameters() if p in opt.state}
+
+
+def _padded_inputs(s, cin_p, c_p):
+    """site_inputs `s` zero-padded as the layout pass pads a site to
+    (Cin cin_p, C c_p): x's and w's new channels 0, the BN vectors' 0,
+    a zero channel's stats (mean 0, var 0: inv = rsqrt(eps)), and the
+    BN-backward sums of the padded tensors."""
+    import torch
+    import torch.nn.functional as F
+    from horovod_tpu_torch.ops import conv_block as cb
+    from horovod_tpu_torch.ops import conv_bn_backward as cbb
+    cin, c = s["w"].shape
+    dc, di = c_p - c, cin_p - cin
+    p = dict(x=F.pad(s["x"], (0, di)), w=F.pad(s["w"], (0, dc, 0, di)),
+             scale=F.pad(s["scale"], (0, dc)), bias=F.pad(s["bias"], (0, dc)),
+             dz=F.pad(s["dz"], (0, dc)), y=F.pad(s["y"], (0, dc)),
+             mean=F.pad(s["mean"], (0, dc)),
+             inv=torch.cat([s["inv"], torch.full((dc,), 1e-5).rsqrt().to(
+                 s["inv"])]))
+    p["db_m"], p["dg_m"] = cb._bn_act_sums(p["dz"], p["y"], p["mean"],
+                                           p["inv"], p["scale"], p["bias"],
+                                           True)
+    p["db"], p["dg"] = cbb._bn_sums(p["dz"], p["y"], p["mean"], p["inv"])
+    m, sc = p["x"].shape[0], p["scale"].float()
+    g2, a2, b2 = cbb.fold_rows(sc, p["inv"], p["db_m"], p["dg_m"], None,
+                               None, m)
+    g3, a3, b3 = cbb.fold_rows(sc, p["inv"], p["db"], p["dg"], None, None, m)
+    p["rows2"] = (g2, p["mean"], p["inv"], a2, b2, sc, p["bias"].float())
+    p["rows3"] = (g3, p["mean"], p["inv"], a3, b3)
+    return p
+
+
+def padded_kernel_check(dev, pairs):
+    """Kernels 1–3 at each padded site shape on the zero-padded inputs of
+    its as-declared site (bf16, the Hopper instances): against their
+    plain versions at the phase-2 tolerances, and the padded lanes of y,
+    Σy, Σy², dx and dW (and of the BN-backward sums dscale, dbias)
+    exactly 0. Whether the real part repeats the declared site's outputs
+    bit for bit is printed: the tile plans and column-sum splits depend
+    on Cin and C, so sums may run in another order. Returns a row per
+    shape pair."""
+    import torch
+    rows = []
+    for i, (decl, padded) in enumerate(pairs):
+        m, cin, c = decl
+        _, cin_p, c_p = padded
+        s = site_inputs(m, cin, c, dev, seed=300 + i)
+        p = _padded_inputs(s, cin_p, c_p)
+        outs, errs = {}, {}
+        for name, run, plain in (("fwd", run_k1, plain_k1),
+                                 ("act_bwd", run_k2, plain_k2),
+                                 ("bn_bwd", run_k3, plain_k3)):
+            outs[name] = (run(s), run(p))
+            torch.cuda.synchronize()
+            errs[name] = check_outputs(name, outs[name][1], plain(p))[1]
+        (y, s1, s2), (yp, s1p, s2p) = outs["fwd"]
+        lanes = [yp[:, c:], s1p[c:], s2p[c:], p["db_m"][c:], p["dg_m"][c:],
+                 p["db"][c:], p["dg"][c:]]
+        same = [torch.equal(yp[:, :c], y), torch.equal(s1p[:c], s1),
+                torch.equal(s2p[:c], s2)]
+        for name in ("act_bwd", "bn_bwd"):
+            (dx, dw), (dxp, dwp) = outs[name]
+            lanes += [dxp[:, cin:], dwp[cin:], dwp[:, c:]]
+            same += [torch.equal(dxp[:, :cin], dx),
+                     torch.equal(dwp[:cin, :c], dw)]
+        zero = max(float(t.float().abs().max()) if t.numel() else 0.0
+                   for t in lanes)
+        row = dict(declared=list(decl), padded=list(padded),
+                   padded_lanes_max=zero, bit_equal=all(same),
+                   equal_parts=[bool(v) for v in same], against_plain=errs)
+        rows.append(row)
+        print(f"(b) kernels 1-3 [hopper] at {padded} on the zero-padded "
+              f"inputs of {decl}: against their plain versions "
+              f"{json.dumps(errs)}; largest |value| in the padded lanes of "
+              f"y, Σy, Σy², dx, dW, dscale, dbias {zero}; real part bit "
+              f"for bit the declared site's (y, Σy, Σy², kernel 2 dx, dW, "
+              f"kernel 3 dx, dW): {row['equal_parts']}")
+        need(zero == 0.0, f"(b): a padded lane of kernels 1-3 at {padded} "
+             f"is not exactly 0")
+        del s, p, outs
+    return rows
+
+
+def layout_plans(batch=32, image=224, depth=50):
+    """Phase 16 (a) and (b): ResNet-50 at full width (224², bf16, batch
+    32, the seed-0 weights and batch of phase 4). (a) the plan at the
+    port's lane (64) is as_declared; (b) at lane 128 the JAX package's
+    edges pad; every 1x1 site on the Hopper instances; kernels 1–3 at
+    the padded site shapes (padded_kernel_check); LAYOUT_STEPS
+    SGD-momentum steps of the padded model through DistributedOptimizer
+    on HOROVOD_CONV_BLOCK=1 against as many as-declared steps (and
+    unfused ones) from the same weights: the losses within TOL_LOSS,
+    every padded lane of the weights, BN parameters, running stats and
+    momentum exactly 0, the stripped weights within TOL_PADDED_STATE,
+    the launches of kernels 1 and 2 a step; then
+    FUSE_BN_STEPS padded steps on HOROVOD_FUSE_CONV_BN=1 (kernel 3); and
+    kernels 1 and 2 timed alone at the padded stage-0 sites beside their
+    as-declared sites (device time)."""
+    import gc
+    import torch
+    import torch.distributed as dist
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import synthetic_benchmark as sb
+    from horovod_tpu_torch.models import resnet
+    from horovod_tpu_torch.ops import layout
+
+    dev = hvd.device()
+    group = dist.group.WORLD
+    model = sb.build(f"resnet{depth}", torch.bfloat16, dev)
+    declared = {k: v.clone() for k, v in model.state_dict().items()}
+    del model
+    stack = resnet.conv_stack(depth)
+    out = {}
+
+    # (a) the port's lane
+    p64 = layout.plan(declared, stack)
+    print(f"(a) plan at the port's lane: {json.dumps(p64.summary())}")
+    need(p64.mode == layout.AS_DECLARED and not p64.padded_edges(),
+         "(a): the plan at lane 64 pads an edge of ResNet-50")
+    out["a"] = p64.summary()
+
+    # (b) the JAX package's lane
+    plan = layout.plan(declared, stack, lane=layout.TPU_LANE)
+    print(f"(b) plan at lane 128: {json.dumps(plan.summary())}")
+    need(plan.padded_edges() == JAX_PADDED_EDGES,
+         f"(b): padded edges {plan.padded_edges()}, not the JAX "
+         f"package's {JAX_PADDED_EDGES}")
+    widths = resnet.widths_of(plan.pad(declared), depth)
+    sites = resnet.fused_sites(depth, batch, image, widths)
+    insts = {}
+    for blk, site, m, cin, c in sites:
+        insts[f"{blk}.{site}"] = [instance(m, cin, c, torch.bfloat16, k)
+                                  for k in ("fwd", "act_bwd", "bn_bwd")]
+    print(f"(b) padded 1x1 sites [kernels 1, 2, 3 instance]: "
+          + json.dumps({k: v for k, v in insts.items()
+                        if k.startswith("s0")}) + f"; the other "
+          f"{len(insts) - sum(k.startswith('s0') for k in insts)} sites as "
+          f"declared")
+    need(len(sites) == 28 and all(v == ["hopper"] * 3
+                                  for v in insts.values()),
+         f"(b): the padded sites do not all take the Hopper instances: "
+         f"{insts}")
+    decl_sites = {(b, k): (m, cin, c) for b, k, m, cin, c in
+                  resnet.fused_sites(depth, batch, image)}
+    pairs = sorted({(decl_sites[(b, k)], (m, cin, c))
+                    for b, k, m, cin, c in sites
+                    if decl_sites[(b, k)] != (m, cin, c)})
+    out["b_kernels"] = padded_kernel_check(dev, pairs)
+    data = sb.make_batch(batch, image, torch.bfloat16, dev, seed=0)
+    runs = {}
+    for run, state, block in (("declared", declared, "1"),
+                              ("padded", plan.pad(declared), "1"),
+                              ("unfused", declared, "0")):
+        os.environ["HOROVOD_CONV_BLOCK"] = block
+        os.environ["HOROVOD_FUSE_CONV_BN"] = "0"
+        m_ = resnet.ResNet.from_state(state)
+        opt = sb.make_optimizer(m_)
+        reset_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses = [float(sb.train_step(m_, opt, data, group))
+                  for _ in range(LAYOUT_STEPS)]
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / LAYOUT_STEPS * 1e3
+        runs[run] = dict(model=m_, opt=opt, losses=losses, ms=ms,
+                         launches=read_counters())
+    os.environ["HOROVOD_CONV_BLOCK"] = "1"
+    dm, pm, um = runs["declared"], runs["padded"], runs["unfused"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(pm["losses"],
+                                                  dm["losses"]))
+    pstate = pm["model"].state_dict()
+    pmom = _momentum(pm["model"], pm["opt"])
+    lanes = max(plan.padding_max(pstate), plan.padding_max(pmom))
+    dstate, dmom = dm["model"].state_dict(), _momentum(dm["model"],
+                                                       dm["opt"])
+    dist_p = _state_distance(plan.strip(pstate), plan.strip(pmom), dstate,
+                             dmom)
+    dist_u = _state_distance(um["model"].state_dict(),
+                             _momentum(um["model"], um["opt"]), dstate, dmom)
+    per = {k: v / LAYOUT_STEPS for k, v in pm["launches"].items()
+           if k in ("fwd", "act_bwd", "bn_bwd")}
+    print(f"(b) {LAYOUT_STEPS} SGD-momentum steps on HOROVOD_CONV_BLOCK=1: "
+          f"padded losses {[round(v, 6) for v in pm['losses']]}, as "
+          f"declared {[round(v, 6) for v in dm['losses']]} (the unfused "
+          f"route {[round(v, 6) for v in um['losses']]}); largest relative "
+          f"difference {rel:.3g} (tolerance {TOL_LOSS}); {pm['ms']:.2f} "
+          f"against {dm['ms']:.2f} ms/step (the first step included); "
+          f"launches a step of kernels 1, 2, 3: padded {per}")
+    print(f"(b) after {LAYOUT_STEPS} steps: largest |value| in the padded "
+          f"lanes of weights, BN parameters, running stats and momentum "
+          f"{lanes}; stripped padded state against as declared, (largest, "
+          f"median) over tensors of max|Δ|/max|ref|: "
+          + json.dumps({k: [round(a, 4), round(b, 4)]
+                        for k, (a, b) in dist_p.items()})
+          + "; the unfused route against as declared: "
+          + json.dumps({k: [round(a, 4), round(b, 4)]
+                        for k, (a, b) in dist_u.items()})
+          + f" (weights' median tolerance {TOL_PADDED_STATE:.4g})")
+    need(all(math.isfinite(v) for v in pm["losses"]),
+         "(b): non-finite padded loss")
+    need(rel <= TOL_LOSS, "(b): the padded and as-declared losses disagree")
+    need(per == {"fwd": 28, "act_bwd": 28, "bn_bwd": 0},
+         f"(b): expected 28 launches of kernels 1 and 2 a step, got {per}")
+    need(lanes == 0.0, "(b): a padded lane is not exactly 0")
+    need(dist_p["weights"][1] <= TOL_PADDED_STATE,
+         "(b): the stripped padded weights differ from the as-declared")
+    out["b"] = dict(plan=plan.summary(), instances=insts,
+                    losses_padded=pm["losses"], losses_declared=dm["losses"],
+                    losses_unfused=um["losses"], loss_rel=rel,
+                    ms_padded=pm["ms"], ms_declared=dm["ms"],
+                    launches_per_step=per, padded_lanes_max=lanes,
+                    distance_padded=dist_p, distance_unfused=dist_u)
+
+    # kernel 3's route, padded
+    os.environ["HOROVOD_CONV_BLOCK"] = "0"
+    os.environ["HOROVOD_FUSE_CONV_BN"] = "1"
+    reset_counters()
+    losses = [float(sb.train_step(pm["model"], pm["opt"], data, group))
+              for _ in range(FUSE_BN_STEPS)]
+    counts = read_counters()
+    lanes3 = max(plan.padding_max(pm["model"].state_dict()),
+                 plan.padding_max(_momentum(pm["model"], pm["opt"])))
+    per3 = {k: counts[k] / FUSE_BN_STEPS for k in ("fwd", "act_bwd",
+                                                   "bn_bwd")}
+    print(f"(b) {FUSE_BN_STEPS} padded steps on HOROVOD_FUSE_CONV_BN=1: "
+          f"losses {[round(v, 6) for v in losses]}; launches a step {per3}; "
+          f"largest |value| in the padded lanes {lanes3}")
+    need(all(math.isfinite(v) for v in losses), "(b): kernel 3's route "
+         "gave a non-finite loss")
+    need(per3 == {"fwd": 0, "act_bwd": 0, "bn_bwd": 28},
+         f"(b): expected 28 launches of kernel 3 a step, got {per3}")
+    need(lanes3 == 0.0, "(b): kernel 3's route moved a padded lane")
+    out["b"].update(fuse_bn_losses=losses, fuse_bn_launches_per_step=per3)
+    os.environ["HOROVOD_CONV_BLOCK"] = "1"
+    os.environ["HOROVOD_FUSE_CONV_BN"] = "0"
+    del runs, dm, pm, um, pstate, pmom, dstate, dmom
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # kernels 1 and 2 alone at the sites the padding changes
+    times, cache = [], {}
+    for blk, site, m, cin, c in sites:
+        before = decl_sites[(blk, site)]
+        if before == (m, cin, c):
+            continue
+        row = {"site": f"{blk}.{site}"}
+        for tag, shape in (("declared", before), ("padded", (m, cin, c))):
+            if shape not in cache:
+                sin = site_inputs(*shape, dev, seed=200 + len(cache))
+                cache[shape] = {k: device_ms(lambda: run(sin))
+                                for k, run in (("fwd", run_k1),
+                                               ("act_bwd", run_k2))}
+                for k in ("fwd", "act_bwd"):
+                    cache[shape][k + "_bound"] = bound(k, *shape)[0]
+                del sin
+            row[tag] = dict(shape=list(shape), **cache[shape])
+        times.append(row)
+        print(f"(b) time {row['site']}: declared {before} kernel 1 "
+              f"{row['declared']['fwd']:.4f} ms (bound "
+              f"{row['declared']['fwd_bound']:.4f}), kernel 2 "
+              f"{row['declared']['act_bwd']:.4f} ({row['declared']['act_bwd_bound']:.4f}); "
+              f"padded {(m, cin, c)} kernel 1 {row['padded']['fwd']:.4f} "
+              f"({row['padded']['fwd_bound']:.4f}), kernel 2 "
+              f"{row['padded']['act_bwd']:.4f} ({row['padded']['act_bwd_bound']:.4f})")
+    tot = {tag: {k: sum(r[tag][k] for r in times)
+                 for k in ("fwd", "act_bwd", "fwd_bound", "act_bwd_bound")}
+           for tag in ("declared", "padded")}
+    print(f"(b) the {len(times)} changed stage-0 sites a step: kernel 1 "
+          f"{tot['declared']['fwd']:.4f} ms declared against "
+          f"{tot['padded']['fwd']:.4f} padded (bounds "
+          f"{tot['declared']['fwd_bound']:.4f}, "
+          f"{tot['padded']['fwd_bound']:.4f}); kernel 2 "
+          f"{tot['declared']['act_bwd']:.4f} against "
+          f"{tot['padded']['act_bwd']:.4f} (bounds "
+          f"{tot['declared']['act_bwd_bound']:.4f}, "
+          f"{tot['padded']['act_bwd_bound']:.4f})")
+    out["b"].update(site_times=times, site_totals=tot)
+    return out, declared, plan, data
+
+
+def layout_tuner(declared, plan, data):
+    """Phase 16 (c): OnlineLayoutTuner (HOROVOD_LAYOUT_AUTOTUNE=1,
+    interval TUNER_INTERVAL) over as_declared and padded at lane 128 on
+    the block route, from phase 16's weights and batch, each swap through
+    resnet.relayout (a new model and DistributedOptimizer, the momentum
+    padded or stripped): each arm's mean ms a step and the winner. After
+    each swap the allocated memory stays within MEM_SWAP_GROWTH of
+    before it, so the dropped model and optimizer were freed."""
+    import gc
+    import torch
+    import torch.distributed as dist
+    from horovod_tpu_torch import synthetic_benchmark as sb
+    from horovod_tpu_torch.common.config import Config
+    from horovod_tpu_torch.core import autotune
+    from horovod_tpu_torch.models import resnet
+    from horovod_tpu_torch.ops import layout
+
+    os.environ["HOROVOD_LAYOUT_AUTOTUNE"] = "1"
+    os.environ["HOROVOD_LAYOUT_AUTOTUNE_INTERVAL"] = str(TUNER_INTERVAL)
+    try:
+        tuner = autotune.OnlineLayoutTuner(Config.from_env())
+    finally:
+        del os.environ["HOROVOD_LAYOUT_AUTOTUNE"]
+        del os.environ["HOROVOD_LAYOUT_AUTOTUNE_INTERVAL"]
+    group = dist.group.WORLD
+    model = resnet.ResNet.from_state(declared)
+    opt = sb.make_optimizer(model)
+    dev = next(model.parameters()).device
+    torch.cuda.reset_peak_memory_stats(dev)
+    walls, swaps, steps = {a: [] for a in tuner.arms}, [], 0
+    while not tuner.frozen and steps < 4 * (TUNER_INTERVAL + 2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = float(sb.train_step(model, opt, data, group))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        need(math.isfinite(loss), f"(c): non-finite loss at step {steps}")
+        walls[tuner.choice].append(dt * 1e3)
+        tuner.record_step(dt)
+        steps += 1
+        if tuner.update():
+            gc.collect()
+            before = torch.cuda.memory_allocated(dev)
+            model, opt = resnet.relayout(model, opt, plan, tuner.choice,
+                                         sb.make_optimizer)
+            gc.collect()
+            after = torch.cuda.memory_allocated(dev)
+            swaps.append(dict(step=steps, to=tuner.choice,
+                              before_gb=before / 1e9, after_gb=after / 1e9))
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    lanes = plan.padding_max(model.state_dict()) \
+        if tuner.choice == layout.NHWC_PADDED else 0.0
+    res = tuner.result or {}
+    print(f"(c) layout tuner, interval {TUNER_INTERVAL}: froze after "
+          f"{steps} steps on {tuner.choice!r}; mean ms a step by arm (the "
+          f"tuner's, 2 discarded a window) "
+          + json.dumps({a: round(v * 1e3, 3) for a, v in
+                        res.get("mean_step_s", {}).items()})
+          + f"; every step's ms by arm "
+          + json.dumps({a: [round(v, 2) for v in w]
+                        for a, w in walls.items()})
+          + f"; swaps {json.dumps(swaps)}; peak memory {peak:.2f} GB")
+    need(tuner.frozen and res.get("winner") == tuner.choice,
+         f"(c): the tuner did not freeze on a winner ({res})")
+    need(all(len(walls[a]) >= TUNER_INTERVAL + 2 for a in tuner.arms),
+         f"(c): an arm ran fewer than {TUNER_INTERVAL + 2} steps")
+    need(all(sw["after_gb"] <= MEM_SWAP_GROWTH * sw["before_gb"]
+             for sw in swaps), "(c): memory grew across a swap: the "
+         "dropped model or optimizer was kept")
+    need(lanes == 0.0, "(c): a padded lane is not exactly 0")
+    del model, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(choice=tuner.choice, result=res, steps=steps,
+                ms_by_arm=walls, swaps=swaps, peak_mem_gb=peak)
+
+
+def race_child() -> int:
+    """Phase 16 (d)'s bounded child, under HOROVOD_RACE_CHECK=1 and
+    HOROVOD_RACE_CHECK_FAIL=1: phase 14's serving engine (the flagship
+    LM, one CUDA graph per bucket) under requests from RACE_CLIENTS
+    threads, then one AsyncCheckpointer save persisting beside a
+    ResNet-50 training step. Prints one JSON line (reports, stale
+    annotations, the instrumented classes); exit 0 only with neither."""
+    import tempfile
+    import threading
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import ckpt
+    from horovod_tpu_torch import synthetic_benchmark as sb
+    from horovod_tpu_torch.analysis import race
+    from horovod_tpu_torch.models import transformer as tfm
+    from horovod_tpu_torch.serve.engine import InferenceEngine
+
+    need(race.active(), "HOROVOD_RACE_CHECK did not enable hvdrace at "
+         "import")
+    dev = torch.device("cuda", 0)
+    cfg = _serve_cfg()
+    model = tfm.TransformerLM(cfg, seed=0, device=dev)
+    eng = InferenceEngine(serve_infer, model, name="flagship", device=dev)
+    eng.warmup((cfg.max_seq,), np.int32, SERVE_BUCKETS)
+    tokens = np.random.default_rng(0).integers(
+        0, cfg.vocab, (8, cfg.max_seq)).astype(np.int32)
+    served, errors = [], []
+
+    def client(i):
+        rng = np.random.default_rng(i)
+        try:
+            for _ in range(RACE_REQUESTS):
+                n = int(rng.choice(SERVE_BUCKETS))  # a padded batch
+                served.append(eng.infer(tokens[:n]).shape)
+        except Exception as e:  # noqa: BLE001 - reported by the parent
+            errors.append(f"client {i}: {type(e).__name__}: {e}")
+    threads = [threading.Thread(target=client, args=(i,), daemon=True)
+               for i in range(RACE_CLIENTS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(120)
+    serve_s = time.perf_counter() - t0
+    need(not any(t.is_alive() for t in threads), "(d): a client hung")
+    need(not errors, f"(d): {errors}")
+    need(eng.compiles == len(SERVE_BUCKETS), f"(d): {eng.compiles} "
+         f"captures, not {len(SERVE_BUCKETS)}")
+    del eng, model
+    torch.cuda.empty_cache()
+
+    hvd.init()
+    try:
+        rnet = sb.build("resnet50", torch.bfloat16, hvd.device())
+        opt = sb.make_optimizer(rnet)
+        data = sb.make_batch(32, 224, torch.bfloat16, hvd.device(), seed=0)
+        sb.train_step(rnet, opt, data, dist.group.WORLD)
+        with tempfile.TemporaryDirectory() as tmp:
+            saver = ckpt.AsyncCheckpointer(tmp)
+            need(saver.save(1, {"params": rnet.state_dict()}),
+                 "(d): the checkpoint save was refused")
+            loss = float(sb.train_step(rnet, opt, data, dist.group.WORLD))
+            need(saver.wait(120), "(d): the writer did not finish")
+            saver.close()
+    finally:
+        hvd.shutdown()
+    reports = race.drain()
+    stale = race.stale_annotations()
+    for r in reports[:5]:
+        print(r.render())
+    print(json.dumps({
+        "race_reports": len(reports), "stale": stale,
+        "requests": len(served), "serve_s": serve_s, "loss": loss,
+        "instrumented": sorted(c.__name__
+                               for c in race._detector._instrumented)}))
+    return 0 if not reports and not stale else 1
+
+
+def race_and_lint() -> dict:
+    """Phase 16 (d): race_child in a bounded process, then hvdlint over
+    the port with the checked-in (empty) baseline."""
+    env = dict(os.environ, HOROVOD_RACE_CHECK="1",
+               HOROVOD_RACE_CHECK_FAIL="1", HOROVOD_CONV_BLOCK="1",
+               HOROVOD_FUSE_CONV_BN="0")
+    t0 = time.perf_counter()
+    rc, text = run_bounded([sys.executable, "-c", "import sys, chip_smoke "
+                            "as cs; sys.exit(cs.race_child())"], 600, env)
+    race_s = time.perf_counter() - t0
+    lines = [ln for ln in text.splitlines() if ln.startswith("{")]
+    res = json.loads(lines[-1]) if lines else {}
+    print(f"(d) hvdrace over serving ({RACE_CLIENTS} threads x "
+          f"{RACE_REQUESTS} requests on the flagship LM's engine, "
+          f"{res.get('requests')} served in {res.get('serve_s', 0):.1f} s) "
+          f"and an async checkpoint beside a ResNet-50 step: exit code "
+          f"{rc}, {res.get('race_reports')} reports, stale annotations "
+          f"{res.get('stale')}, {len(res.get('instrumented', []))} classes "
+          f"instrumented, {race_s:.1f} s")
+    need(rc == 0 and res.get("race_reports") == 0 and res.get("stale") == []
+         and res.get("requests") == RACE_CLIENTS * RACE_REQUESTS,
+         f"(d): hvdrace failed ({rc}):\n{text[-4000:]}")
+    base = "horovod_tpu_torch/analysis/hvdlint_baseline.json"
+    t0 = time.perf_counter()
+    rc, lint = run_bounded([sys.executable, "-m",
+                            "horovod_tpu_torch.analysis",
+                            "horovod_tpu_torch", "--baseline", base], 600)
+    lint_s = time.perf_counter() - t0
+    print(f"(d) python -m horovod_tpu_torch.analysis horovod_tpu_torch "
+          f"--baseline {base}: exit code {rc}, "
+          f"{lint.strip().splitlines()[-1] if lint.strip() else ''!r}, "
+          f"{lint_s:.1f} s")
+    need(rc == 0, f"(d): hvdlint over the port failed:\n{lint[-4000:]}")
+    return dict(race=res, race_s=race_s, lint_rc=rc, lint_s=lint_s)
+
+
+def layout_path() -> dict:
+    """Phase 16 (see the module docstring)."""
+    import horovod_tpu_torch as hvd
+    hvd.init()
+    try:
+        out, declared, plan, data = layout_plans()
+        out["c"] = layout_tuner(declared, plan, data)
+    finally:
+        hvd.shutdown()
+    del declared, data
+    import torch
+    torch.cuda.empty_cache()
+    out["d"] = race_and_lint()
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4684,6 +5248,8 @@ def main() -> int:
     lap("14 serving, the record readers and the data service")
     parallel = parallel_path(lm)
     lap("15 tensor, pipeline and expert parallelism")
+    layout_run = layout_path()
+    lap("16 the layout pass, its tuner, hvdrace and hvdlint")
     print(f"total: {time.perf_counter() - t0:.1f} s")
 
     src = "horovod_tpu_torch/csrc/"
@@ -4734,6 +5300,7 @@ def main() -> int:
                    "observability_path": observability,
                    "serving_path": serving,
                    "parallel_path": parallel,
+                   "layout_path": layout_run,
                    "phase_s": phase_s,
                    "nvidia_smi": smi}, f, indent=1)
     print(json.dumps(line))

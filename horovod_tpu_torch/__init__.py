@@ -49,7 +49,11 @@ the stall watchdog bounds every collective wait under
 ranks call the same collectives (CollectiveMismatchError,
 VersionMismatchError) and, under HOROVOD_CHECK_COLLECTIVES, their
 rolling fingerprints (CollectiveDivergenceError); and
-HOROVOD_KV_REPLICAS > 1 replicates the rendezvous control plane. The
+HOROVOD_KV_REPLICAS > 1 replicates the rendezvous control plane.
+`python -m horovod_tpu_torch.analysis` is hvdlint over the port's own
+rules, HOROVOD_RACE_CHECK=1 turns on hvdrace, and ops/layout.py with
+core/autotune.OnlineLayoutTuner pads the ResNet's channel edges to the
+kernels' lane and tunes padded against as-declared online. The
 package imports neither JAX nor horovod_tpu.
 """
 
@@ -101,6 +105,18 @@ from horovod_tpu_torch.optim.functions import (  # noqa: F401
 from horovod_tpu_torch import elastic  # noqa: F401,E402
 
 __version__ = "0.1.0"
+
+# hvdrace (analysis/race.py): with HOROVOD_RACE_CHECK set, the port's
+# `# guarded-by:`-annotated runtime classes are instrumented here, at
+# import, before any runtime instance exists, so every lock they create
+# is tracked from birth. Without the variable nothing is imported or
+# patched.
+import os as _os  # noqa: E402
+
+if _os.environ.get("HOROVOD_RACE_CHECK"):  # presence check: zero cost
+    # when unset; race.env_enabled() owns the parse of the value.
+    from horovod_tpu_torch.analysis import race as _race
+    _race.maybe_enable_from_env()
 
 
 def metrics() -> dict:

@@ -1,2 +1,23 @@
-"""Runtime analysis of the port: the collective fingerprint verifier
-(analysis/verifier.py). The static analyzers are ROADMAP A15."""
+"""hvdlint, hvdrace and the fingerprint verifier of the port
+(counterpart of horovod_tpu/analysis/).
+
+* ``hvdlint`` (``python -m horovod_tpu_torch.analysis <paths>``) runs the
+  AST rule families over Python source: collective consistency (HVD0xx,
+  interprocedural through ``callgraph``), concurrency discipline
+  (HVD1xx, including the ``# guarded-by:`` lock annotations) and the
+  HVD-ENV documentation rule. ``--format json`` and ``--baseline`` gate
+  on new findings only; the port's checked-in baseline,
+  ``analysis/hvdlint_baseline.json``, is empty.
+* ``race`` (**hvdrace**, ``HOROVOD_RACE_CHECK=1``) enforces the
+  ``# guarded-by:`` annotations at run time with an Eraser-style
+  lockset detector over the port's annotated runtime classes.
+* ``verifier`` (``HOROVOD_CHECK_COLLECTIVES=1``) cross-checks each
+  rank's rolling fingerprint of its collectives.
+
+The analyzers of lowered XLA programs (hvdhlo, hvdshard, hvdsched,
+hvdnum) need an analog over torch graphs: ROADMAP A15.
+"""
+
+from horovod_tpu_torch.analysis.driver import (  # noqa: F401
+    Finding, lint_paths, lint_source, main, run_cli,
+)

@@ -474,7 +474,7 @@ class AsyncCheckpointer:
     def _record(self, generation: int, **fields) -> None:
         """Add `fields` to the history record of `generation` (the
         caller holds _lock)."""
-        for rec in reversed(self.history):
+        for rec in reversed(self.history):  # hvdlint: disable=HVD101 -- _record runs under its callers' `with self._lock`
             if rec["generation"] == generation:
                 rec.update(fields)
                 return

@@ -112,34 +112,42 @@ def check(dev: Optional[torch.device] = None, n: int = 1000) -> Dict:
     for dt in DTYPES:
         xs, x = rows(dt, shape), mine(dt, shape)
         st = torch.stack(xs)
-        errs[f"min_{dt}"] = _same(f"min {dt}", hvd.allreduce(x, op=hvd.Min),
-                                  st.min(0).values)
+        errs[f"min_{dt}"] = _same(
+            f"min {dt}", hvd.allreduce(x, op=hvd.Min, name="check.min"),
+            st.min(0).values)
         errs[f"max_{dt}"] = _same(
-            f"max {dt}", hvd.grouped_allreduce([x, x], op=hvd.Max)[1],
+            f"max {dt}",
+            hvd.grouped_allreduce([x, x], op=hvd.Max, name="check.max")[1],
             st.max(0).values)
         errs[f"product_{dt}"] = _same(
-            f"product {dt}", hvd.allreduce(x, op=hvd.Product), _product(xs))
+            f"product {dt}",
+            hvd.allreduce(x, op=hvd.Product, name="check.product"),
+            _product(xs))
         if dt == "i32":
-            errs["sum_i32"] = _same("sum i32", hvd.allreduce(x, op=hvd.Sum),
-                                    st.sum(0).to(torch.int32))
+            errs["sum_i32"] = _same(
+                "sum i32", hvd.allreduce(x, op=hvd.Sum, name="check.sum_i32"),
+                st.sum(0).to(torch.int32))
             errs["avg_i32"] = _same(
-                "average i32", hvd.allreduce(x),
+                "average i32", hvd.allreduce(x, name="check.avg_i32"),
                 torch.div(st.sum(0), k, rounding_mode="floor").to(
                     torch.int32))
             continue
         ref = _f64(st).sum(0)
         scale = np.abs(_f64(st)).sum(0).max()
-        errs[f"sum_{dt}"] = _near(f"sum {dt}", hvd.allreduce(x, op=hvd.Sum),
-                                  ref, TOL[f"sum_{dt}"], scale)
-        errs[f"avg_{dt}"] = _near(f"average {dt}", hvd.allreduce(x),
-                                  ref / k, TOL[f"sum_{dt}"], scale)
+        errs[f"sum_{dt}"] = _near(
+            f"sum {dt}", hvd.allreduce(x, op=hvd.Sum, name="check.sum"),
+            ref, TOL[f"sum_{dt}"], scale)
+        errs[f"avg_{dt}"] = _near(
+            f"average {dt}", hvd.allreduce(x, name="check.avg"), ref / k,
+            TOL[f"sum_{dt}"], scale)
         oracle = adasum.adasum_numpy_reference([_f64(t) for t in xs])
         for halving in (False, True):
             cfg.adasum_halving = halving
             tag = "_halving" if halving else ""
             errs[f"adasum{tag}_{dt}"] = _near(
-                f"adasum{tag} {dt}", hvd.allreduce(x, op=hvd.Adasum), oracle,
-                TOL[f"adasum_{dt}"], np.abs(oracle).max())
+                f"adasum{tag} {dt}",
+                hvd.allreduce(x, op=hvd.Adasum, name="check.adasum"),
+                oracle, TOL[f"adasum_{dt}"], np.abs(oracle).max())
         cfg.adasum_halving = False
 
     if k >= 3:
@@ -155,17 +163,20 @@ def check(dev: Optional[torch.device] = None, n: int = 1000) -> Dict:
                     [_f64(t) for t in xs])
                 errs[f"adasum_set{tag}"] = _near(
                     f"adasum over {members}",
-                    hvd.allreduce(x, op=hvd.Adasum, process_set=ps), oracle,
+                    hvd.allreduce(x, op=hvd.Adasum, name="check.adasum_set",
+                                  process_set=ps), oracle,
                     TOL["adasum_f32"], np.abs(oracle).max())
                 st = _f64(torch.stack(xs))
                 errs[f"sum_set{tag}"] = _near(
                     f"sum over {members}",
-                    hvd.allreduce(x, op=hvd.Sum, process_set=ps), st.sum(0),
+                    hvd.allreduce(x, op=hvd.Sum, name="check.sum_set",
+                                  process_set=ps), st.sum(0),
                     TOL["sum_f32"], np.abs(st).sum(0).max())
                 root = members[-1]
                 errs[f"broadcast_set{tag}"] = _same(
                     f"broadcast over {members}",
-                    hvd.broadcast(x, root, process_set=ps), xs[-1])
+                    hvd.broadcast(x, root, name="check.broadcast_set",
+                                  process_set=ps), xs[-1])
             hvd.remove_process_set(ps)
         cfg.dynamic_process_sets = dyn
 
@@ -181,7 +192,8 @@ def check(dev: Optional[torch.device] = None, n: int = 1000) -> Dict:
     for op, div in (("SUM", 1), ("AVERAGE", k)):
         errs[f"reducescatter_{op.lower()}"] = _near(
             f"reducescatter {op}",
-            hvd.reducescatter(mine("f32", (d0, 3), 2), op=op),
+            hvd.reducescatter(mine("f32", (d0, 3), 2), op=op,
+                              name="check.reducescatter"),
             st.sum(0)[lo:lo + cut[me]] / div, TOL["sum_f32"],
             np.abs(st).sum(0).max())
     splits = [[(i + 2 * j) % 3 for j in range(k)] for i in range(k)]
@@ -202,9 +214,9 @@ def check(dev: Optional[torch.device] = None, n: int = 1000) -> Dict:
             st = _f64(torch.stack(xs))
             scale = np.abs(st).sum(0).max()
             x = mine(dt, (m,), 4)
-            hier = hvd.allreduce(x, op=hvd.Sum)
+            hier = hvd.allreduce(x, op=hvd.Sum, name="check.hier_sum")
             cfg.hierarchical_allreduce = False
-            flat = hvd.allreduce(x, op=hvd.Sum)
+            flat = hvd.allreduce(x, op=hvd.Sum, name="check.flat_sum")
             cfg.hierarchical_allreduce = True
             errs[f"hier_sum_{dt}"] = _near(f"hierarchical sum {dt}", hier,
                                            st.sum(0), TOL[f"sum_{dt}"],
@@ -213,7 +225,8 @@ def check(dev: Optional[torch.device] = None, n: int = 1000) -> Dict:
                 f"hierarchical vs flat {dt}", hier, _f64(flat),
                 2 * TOL[f"sum_{dt}"], scale)
             errs[f"hier_avg_{dt}"] = _near(
-                f"hierarchical average {dt}", hvd.allreduce(x),
+                f"hierarchical average {dt}",
+                hvd.allreduce(x, name="check.hier_avg"),
                 st.sum(0) / k, TOL[f"sum_{dt}"], scale)
         xs = rows("i32", (m,), 4)
         errs["hier_sum_i32"] = _same(

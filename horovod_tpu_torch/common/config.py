@@ -5,11 +5,11 @@ the fusion threshold, the bucket cap and order, elastic mode and its
 collective timeout, the collectives' modes
 (hierarchical allreduce and allgather, the two-level split of
 HOROVOD_TPU_MESH_SHAPE, Adasum's vector halving, dynamic process sets),
-the two online tuners (HOROVOD_AUTOTUNE*, HOROVOD_BUCKET_AUTOTUNE*;
-core/autotune.py), the timeline and the profilers' knobs (profiler/),
-the observability and control-plane knobs (metrics, the stall
-watchdog, the consistency check, the fingerprint verifier, the native
-KV server the launcher starts),
+the three online tuners (HOROVOD_AUTOTUNE*, HOROVOD_BUCKET_AUTOTUNE*,
+HOROVOD_LAYOUT_AUTOTUNE*; core/autotune.py), the timeline and the
+profilers' knobs (profiler/), the observability and control-plane
+knobs (metrics, the stall watchdog, the consistency check, the
+fingerprint verifier, the native KV server the launcher starts),
 and every knob the launcher writes (`runner/launch.py args_to_env`) or
 reads to place and join the workers (rank, size, local and cross
 topology, rendezvous, controller, the MPI rank indirection). The knob
@@ -61,6 +61,10 @@ HOROVOD_BUCKET_AUTOTUNE = "HOROVOD_BUCKET_AUTOTUNE"
 HOROVOD_BUCKET_AUTOTUNE_INTERVAL = "HOROVOD_BUCKET_AUTOTUNE_INTERVAL"
 HOROVOD_BUCKET_AUTOTUNE_MAX_ADJUSTMENTS = \
     "HOROVOD_BUCKET_AUTOTUNE_MAX_ADJUSTMENTS"
+# Online arbitration between the lane-padded and as-declared model
+# layouts (ops/layout.py, core/autotune.OnlineLayoutTuner).
+HOROVOD_LAYOUT_AUTOTUNE = "HOROVOD_LAYOUT_AUTOTUNE"
+HOROVOD_LAYOUT_AUTOTUNE_INTERVAL = "HOROVOD_LAYOUT_AUTOTUNE_INTERVAL"
 # The two-level split as "dcn:A,ici:B" or "AxB": dcn is the cross level,
 # ici the local one (core/topology.py).
 HOROVOD_TPU_MESH_SHAPE = "HOROVOD_TPU_MESH_SHAPE"
@@ -197,6 +201,10 @@ class Config:
     bucket_autotune: bool = False
     bucket_autotune_interval: int = 20
     bucket_autotune_max_adjustments: int = 4
+    # Per-model layout arbitration: padded against as-declared by
+    # measured step time; rank 0 decides and broadcasts.
+    layout_autotune: bool = False
+    layout_autotune_interval: int = 20
     # The Chrome-trace timeline that init() starts on rank 0.
     timeline_path: str = ""
     timeline_mark_cycles: bool = False
@@ -263,6 +271,9 @@ class Config:
                 HOROVOD_BUCKET_AUTOTUNE_INTERVAL, 20),
             bucket_autotune_max_adjustments=_env_int(
                 HOROVOD_BUCKET_AUTOTUNE_MAX_ADJUSTMENTS, 4),
+            layout_autotune=_env_bool(HOROVOD_LAYOUT_AUTOTUNE),
+            layout_autotune_interval=_env_int(
+                HOROVOD_LAYOUT_AUTOTUNE_INTERVAL, 20),
             timeline_path=os.environ.get(HOROVOD_TIMELINE, ""),
             timeline_mark_cycles=_env_bool(HOROVOD_TIMELINE_MARK_CYCLES),
             elastic=_env_bool(HOROVOD_ELASTIC),

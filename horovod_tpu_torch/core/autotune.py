@@ -1,6 +1,6 @@
-"""Online tuners of the fusion threshold (counterpart of
-horovod_tpu/core/autotune.py GaussianProcess, BayesianOptimization, the
-knobs, ParameterManager and OnlineBucketTuner).
+"""Online tuners of the fusion threshold and of the layout (counterpart
+of horovod_tpu/core/autotune.py GaussianProcess, BayesianOptimization,
+the knobs, ParameterManager, OnlineBucketTuner and OnlineLayoutTuner).
 
 `GaussianProcess` and `BayesianOptimization` are the JAX package's numpy
 code, line for line, so that the same samples give the same proposals.
@@ -13,7 +13,10 @@ against the starting setting and freezes the faster.
 `OnlineBucketTuner` (HOROVOD_BUCKET_AUTOTUNE) folds per-bucket (bytes,
 seconds) samples into log2 size classes and re-points the threshold at
 the fastest class every `bucket_autotune_interval` steps, with the
-reference's guards.
+reference's guards. `OnlineLayoutTuner` (HOROVOD_LAYOUT_AUTOTUNE) runs
+each layout arm (ops/layout.py) for `layout_autotune_interval` steps,
+discarding each arm's first 2, and freezes on the arm with the lower
+mean step time.
 
 In a world of more than one rank, rank 0 decides and broadcasts the
 decision (`optim/functions.py broadcast_object`), and every rank counts
@@ -24,12 +27,13 @@ re-plans its buckets between steps when the threshold moves.
 
 The ParameterManager marks each sample boundary on the timeline
 (`mark_cycle`, drawn under HOROVOD_TIMELINE_MARK_CYCLES), as the JAX
-package's does, and both tuners feed the metrics registry as the JAX
+package's does, and the tuners feed the metrics registry as the JAX
 package's do (`horovod_autotune_*`: samples, sample seconds, score,
 the knobs applied, frozen; `horovod_bucket_autotune_*`: the threshold,
-the adjustments, frozen), with a flight record for each threshold the
-bucket tuner moves. Left out: the cache-capacity knob (see `default_knobs`), and OnlineLayoutTuner,
-which tunes the layout pass (A7).
+the adjustments, frozen; `horovod_layout_autotune_*`: frozen, the arm),
+with a flight record for each threshold the bucket tuner moves and one
+when the layout tuner freezes. Left out: the cache-capacity knob (see
+`default_knobs`).
 """
 
 from __future__ import annotations
@@ -546,5 +550,113 @@ class OnlineBucketTuner:
                     f"{self.cfg.fusion_threshold_bytes} bytes "
                     f"(adjustment {self.adjustments}/"
                     f"{self.max_adjustments})")
+        except Exception:
+            pass  # telemetry never breaks the tuner
+
+
+class OnlineLayoutTuner:
+    """Arbitrate the model's layout (ops/layout.py: lane-padded against
+    as-declared) by measured step time, online.
+
+    Each arm runs for `layout_autotune_interval` optimizer steps; the
+    first 2 steps of every arm are discarded (they pay the swap: new
+    parameters, a new optimizer, first launches at new shapes). Once
+    every arm has its window, rank 0 picks the lower mean and broadcasts
+    it (`broadcast_object`, name "layout_tuner_decision"), so every rank
+    applies the same layout at the same step; then the tuner freezes.
+
+        tuner = OnlineLayoutTuner(cfg, arms=("as_declared",
+                                             "nhwc_padded"))
+        while training:
+            t0 = time.perf_counter()
+            step(...)
+            tuner.record_step(time.perf_counter() - t0)
+            if tuner.update():
+                model, opt = swap_layout(model, opt, tuner.choice)
+    """
+
+    def __init__(self, config, arms: Tuple[str, ...] = ("as_declared",
+                                                        "nhwc_padded")):
+        if len(arms) < 2:
+            raise ValueError("layout tuner needs at least two arms")
+        self.cfg = config
+        self.enabled = bool(config.layout_autotune)
+        self.interval = max(int(config.layout_autotune_interval), 2)
+        self.arms = tuple(arms)
+        self._arm = 0
+        self._warmup = 2  # discard the swap's first steps
+        self._walls: dict = {a: [] for a in self.arms}
+        self._frozen = not self.enabled
+        self.choice: str = self.arms[0]
+        self.result: Optional[dict] = None
+
+    @property
+    def frozen(self) -> bool:
+        return self._frozen
+
+    def record_step(self, seconds: float) -> None:
+        """One optimizer step's wall time under the current arm; the
+        first 2 of every arm's window are discarded."""
+        if self._frozen or seconds <= 0:
+            return
+        if self._warmup > 0:
+            self._warmup -= 1
+            return
+        self._walls[self.arms[self._arm]].append(float(seconds))
+
+    def _decide(self) -> str:
+        """Rank 0's decision once every arm has a full window: the arm
+        with the lower mean wall."""
+        means = {a: sum(w) / len(w) for a, w in self._walls.items() if w}
+        best = min(means, key=lambda a: means[a])
+        self.result = {
+            "winner": best,
+            "mean_step_s": {a: round(m, 6) for a, m in means.items()},
+        }
+        return best
+
+    def update(self) -> bool:
+        """Advance the tuner; call once per optimizer step on every rank.
+        True when the arm to run under changed at this step."""
+        if self._frozen:
+            return False
+        if len(self._walls[self.arms[self._arm]]) < self.interval:
+            return False
+        if self._arm + 1 < len(self.arms):
+            self._arm += 1
+            self._warmup = 2
+            self.choice = self.arms[self._arm]
+            self._observe()
+            return True
+        if _world_size() > 1:
+            from horovod_tpu_torch.optim.functions import broadcast_object
+            decision = self._decide() if _rank() == 0 else None
+            winner = broadcast_object(decision, root_rank=0,
+                                      name="layout_tuner_decision")
+        else:
+            winner = self._decide()
+        changed = winner != self.choice
+        self.choice = winner
+        self._frozen = True
+        self._observe()
+        return changed
+
+    def _observe(self) -> None:
+        try:
+            from horovod_tpu_torch.observability import flight
+            from horovod_tpu_torch.observability import metrics as m
+            reg = m.registry()
+            if reg.enabled:
+                reg.gauge("horovod_layout_autotune_frozen",
+                          "1 once the online layout tuner froze").set(
+                              1.0 if self._frozen else 0.0)
+                reg.gauge("horovod_layout_autotune_arm",
+                          "Layout arm currently applied (index into "
+                          "the tuner's arm list)").set(
+                              float(self.arms.index(self.choice)))
+            if self._frozen and self.result:
+                flight.record(
+                    "autotune", f"layout tuner froze on "
+                    f"{self.choice!r} ({self.result['mean_step_s']})")
         except Exception:
             pass  # telemetry never breaks the tuner

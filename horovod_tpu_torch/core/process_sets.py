@@ -153,7 +153,7 @@ class ProcessSetTable:
             self._table.clear()
 
 
-def _table() -> ProcessSetTable:
+def _current_table() -> ProcessSetTable:
     from horovod_tpu_torch.core import topology
     return topology._require().process_set_table
 
@@ -174,18 +174,18 @@ def add_process_set(ranks_or_ps) -> ProcessSet:
     _require_dynamic()
     ps = ranks_or_ps if isinstance(ranks_or_ps, ProcessSet) else ProcessSet(
         ranks_or_ps)
-    _table().register(ps)
+    _current_table().register(ps)
     return ps
 
 
 def remove_process_set(ps: ProcessSet) -> None:
     """Deregister a set and destroy its group; every rank calls it."""
     _require_dynamic()
-    _table().remove(ps)
+    _current_table().remove(ps)
 
 
 def get_process_set(process_set_id: int) -> ProcessSet:
-    return _table().get(process_set_id)
+    return _current_table().get(process_set_id)
 
 
 def axis_process_set(axis: str, rank: Optional[int] = None) -> ProcessSet:
@@ -210,7 +210,7 @@ def axis_process_set(axis: str, rank: Optional[int] = None) -> ProcessSet:
         rank = topology.rank()
     group = spec.group_of(axis, rank)
     reg = ProcessSet(group)
-    _table().register(reg)
+    _current_table().register(reg)
     handle = ProcessSet(group)
     handle.process_set_id = reg.process_set_id
     handle.group = reg.group

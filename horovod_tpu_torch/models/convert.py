@@ -5,7 +5,9 @@ horovod_tpu.models.resnet.init returns, with numpy (or array-like)
 leaves, and gives a flat {state_dict name: numpy array} for
 models/resnet.ResNet: 3x3 and 7x7 conv weights turn from HWIO to OIHW,
 1x1 weights stay (Cin, Cout) matrices, BN scale/bias and the running
-mean/var keep their shapes.
+mean/var keep their shapes. Any widths convert: a tree that
+horovod_tpu.ops.layout's `plan(...).pad` returned gives the padded
+state, and `load_jax` resizes the model to it.
 
 `vgg_from_jax(params)`, `inception_from_jax(params, stats)` and
 `mlp_from_jax(params)` do the same for horovod_tpu.models.vgg,
@@ -70,12 +72,25 @@ def from_jax(params: Mapping[str, Any],
 
 def load_jax(model, params, stats) -> None:
     """Copy a JAX ResNet's weights and running stats into `model` (cast
-    to each tensor's dtype and device)."""
+    to each tensor's dtype and device). A tree of other widths than the
+    model's (one padded by the layout pass) replaces the model's tensors
+    with tensors of the tree's shapes."""
     import torch
 
+    own = model.state_dict()
     state = {k: torch.from_numpy(np.array(v)) for k, v in
              from_jax(params, stats).items()}
-    model.load_state_dict(state, strict=True)
+    if set(state) != set(own) or all(own[k].shape == v.shape
+                                     for k, v in state.items()):
+        model.load_state_dict(state, strict=True)
+        return
+    for k, v in state.items():
+        path, _, leaf = k.rpartition(".")
+        mod = model.get_submodule(path)
+        old = getattr(mod, leaf)
+        t = v.to(old)
+        setattr(mod, leaf, torch.nn.Parameter(t, old.requires_grad)
+                if isinstance(old, torch.nn.Parameter) else t)
 
 
 def transformer_from_jax(params: Mapping[str, Any]) -> Dict[str, np.ndarray]:

@@ -16,12 +16,19 @@ Parity points with the JAX model:
     them; 3x3 and 7x7 weights are OIHW;
   * the fused-site routing (`_fused_site_profitable`, both knobs) is the
     JAX package's, so the same sites run the same kernels.
+
+The widths come from the parameters: `ResNet(widths=...)` takes each
+channel edge of `conv_stack` (the layout pass's declaration), and
+`ResNet.from_state(state)` builds the model a state dict's shapes
+describe, so a state padded by `ops/layout.py` loads and runs. The
+default construction draws the declared widths in the same order as
+before.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Dict, Tuple
+from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -31,6 +38,7 @@ from horovod_tpu_torch.ops import sync_batch_norm as sbn
 from horovod_tpu_torch.ops.conv_block import (conv1x1_bn_act_nhwc,
                                               conv_block_enabled)
 from horovod_tpu_torch.ops.conv_bn_backward import conv1x1_bn_nhwc
+from horovod_tpu_torch.ops.layout import NHWC_PADDED, LayoutPlan, Site
 from horovod_tpu_torch.ops.pooling import max_pool
 
 STAGE_BLOCKS = {50: (3, 4, 6, 3), 101: (3, 4, 23, 3), 152: (3, 8, 36, 3)}
@@ -57,28 +65,30 @@ class BN(nn.Module):
 
 
 class Stem(nn.Module):
-    def __init__(self, gen, dtype, device):
+    def __init__(self, cin: int, c: int, gen, dtype, device):
         super().__init__()
-        self.conv = nn.Parameter(_normal(gen, (64, 3, 7, 7),
+        self.conv = nn.Parameter(_normal(gen, (c, cin, 7, 7),
                                          (2.0 / 147) ** 0.5, dtype, device))
-        self.bn = BN(64, dtype, device)
+        self.bn = BN(c, dtype, device)
 
 
 class Bottleneck(nn.Module):
-    def __init__(self, cin: int, width: int, stride: int, proj: bool, gen,
-                 dtype, device):
+    """conv1 (cin, c1), conv2 (c2, c1, 3, 3), conv3 (c2, cout) and the
+    projection (cin, cout) of the first block of a stage."""
+
+    def __init__(self, cin: int, c1: int, c2: int, cout: int, stride: int,
+                 proj: bool, gen, dtype, device):
         super().__init__()
-        cout = width * 4
         self.stride = stride
-        self.conv1 = nn.Parameter(_normal(gen, (cin, width),
+        self.conv1 = nn.Parameter(_normal(gen, (cin, c1),
                                           (2.0 / cin) ** 0.5, dtype, device))
-        self.bn1 = BN(width, dtype, device)
-        self.conv2 = nn.Parameter(_normal(gen, (width, width, 3, 3),
-                                          (2.0 / (9 * width)) ** 0.5, dtype,
+        self.bn1 = BN(c1, dtype, device)
+        self.conv2 = nn.Parameter(_normal(gen, (c2, c1, 3, 3),
+                                          (2.0 / (9 * c1)) ** 0.5, dtype,
                                           device))
-        self.bn2 = BN(width, dtype, device)
-        self.conv3 = nn.Parameter(_normal(gen, (width, cout),
-                                          (2.0 / width) ** 0.5, dtype,
+        self.bn2 = BN(c2, dtype, device)
+        self.conv3 = nn.Parameter(_normal(gen, (c2, cout),
+                                          (2.0 / c2) ** 0.5, dtype,
                                           device))
         self.bn3 = BN(cout, dtype, device)
         self.has_proj = proj
@@ -162,26 +172,97 @@ def _fused_site_profitable(w) -> bool:
 Stats = Dict[str, Dict]
 
 
+def conv_stack(depth: int = 50) -> List[Site]:
+    """The conv stack's declaration for the layout pass (ops/layout.py):
+    the edges of horovod_tpu/models/resnet.py conv_stack, in the port's
+    state-dict names and axis order. 1x1 weights are (Cin, Cout): dim 0
+    in, dim 1 out; 3x3 and 7x7 weights are OIHW: dim 1 in, dim 0 out; BN
+    scale, bias, mean and var ride dim 0; the FC weight its input dim 0.
+
+    Edge map: "img" is the 3-channel input, "stem" the stem output and
+    stage-0 trunk input, "s{s}" stage s's residual trunk, "s{s}b{b}.c1"
+    and ".c2" the block-internal widths."""
+    def bn(prefix: str, edge: str) -> List[Site]:
+        return [Site(f"{prefix}.{k}", {0: edge})
+                for k in ("scale", "bias", "mean", "var")]
+
+    sites = [Site("stem.conv", {1: "img", 0: "stem"})] + bn("stem.bn",
+                                                           "stem")
+    in_edge = "stem"
+    for s, n in enumerate(STAGE_BLOCKS[depth]):
+        out_edge = f"s{s}"
+        for b in range(n):
+            name = f"s{s}b{b}"
+            c1, c2 = f"{name}.c1", f"{name}.c2"
+            sites += [Site(f"{name}.conv1", {0: in_edge, 1: c1}),
+                      Site(f"{name}.conv2", {1: c1, 0: c2}),
+                      Site(f"{name}.conv3", {0: c2, 1: out_edge})]
+            for m, edge in (("bn1", c1), ("bn2", c2), ("bn3", out_edge)):
+                sites += bn(f"{name}.{m}", edge)
+            if b == 0:
+                sites.append(Site(f"{name}.proj", {0: in_edge, 1: out_edge}))
+                sites += bn(f"{name}.bnp", out_edge)
+            in_edge = out_edge
+    sites.append(Site("fc.w", {0: in_edge}))
+    return sites
+
+
+def declared_widths(depth: int = 50) -> Dict[str, int]:
+    """Every edge of `conv_stack(depth)` at its declared width."""
+    widths = {"img": 3, "stem": 64}
+    for s, n in enumerate(STAGE_BLOCKS[depth]):
+        widths[f"s{s}"] = 256 * 2 ** s
+        for b in range(n):
+            widths[f"s{s}b{b}.c1"] = widths[f"s{s}b{b}.c2"] = 64 * 2 ** s
+    return widths
+
+
+def widths_of(state: Mapping[str, torch.Tensor],
+              depth: int = 50) -> Dict[str, int]:
+    """The edge widths a state dict's shapes give (padded or not)."""
+    return {edge: int(state[site.path].shape[d])
+            for site in conv_stack(depth) for d, edge in site.dims.items()}
+
+
 class ResNet(nn.Module):
-    """ResNet v1.5. Parameters in `dtype`, random from `seed`."""
+    """ResNet v1.5. Parameters in `dtype`, random from `seed`, at the
+    declared widths or at `widths` (edge → channels, `conv_stack`'s
+    edges)."""
 
     def __init__(self, depth: int = 50, num_classes: int = 1000,
-                 dtype=torch.float32, device="cpu", seed: int = 0):
+                 dtype=torch.float32, device="cpu", seed: int = 0,
+                 widths: Optional[Mapping[str, int]] = None):
         super().__init__()
+        w = declared_widths(depth) if widths is None else widths
         gen = torch.Generator().manual_seed(seed)
-        self.stem = Stem(gen, dtype, device)
+        self.depth = depth
+        self.stem = Stem(w["img"], w["stem"], gen, dtype, device)
         self.block_names = []
-        cin = 64
+        cin = w["stem"]
         for s, n in enumerate(STAGE_BLOCKS[depth]):
-            width = 64 * (2 ** s)
             for b in range(n):
                 name = f"s{s}b{b}"
                 stride = 2 if (b == 0 and s > 0) else 1
-                self.add_module(name, Bottleneck(cin, width, stride, b == 0,
-                                                 gen, dtype, device))
+                self.add_module(name, Bottleneck(
+                    cin, w[f"{name}.c1"], w[f"{name}.c2"], w[f"s{s}"],
+                    stride, b == 0, gen, dtype, device))
                 self.block_names.append(name)
-                cin = width * 4
+                cin = w[f"s{s}"]
         self.fc = FC(cin, num_classes, gen, dtype, device)
+
+    @classmethod
+    def from_state(cls, state: Mapping[str, torch.Tensor], depth: int = 50,
+                   device=None) -> "ResNet":
+        """A model at the widths of `state` (padded by ops/layout.py or
+        not), holding a copy of it, on `device` (default the state's),
+        its parameters in the state's dtype."""
+        conv = state["stem.conv"]
+        model = cls(depth, int(state["fc.w"].shape[1]), dtype=conv.dtype,
+                    device="meta", widths=widths_of(state, depth))
+        model = model.to_empty(device=conv.device if device is None
+                               else device)
+        model.load_state_dict(state, strict=True)
+        return model
 
     def forward(self, x, train: bool = True,
                 group=None) -> Tuple[torch.Tensor, Stats]:
@@ -252,6 +333,32 @@ class ResNet(nn.Module):
                 getattr(blk, bn_name).var.copy_(st["var"])
 
 
+def relayout(model: ResNet, optimizer, plan: LayoutPlan, mode: str,
+             make_optimizer: Callable[[ResNet], Any]):
+    """Move a training ResNet and its optimizer to layout `mode`
+    (ops/layout.py: NHWC_PADDED pads by `plan`, AS_DECLARED strips).
+    Returns (model, optimizer): a model holding the rewritten state, a
+    new optimizer from `make_optimizer(model)` (its hooks and bucket plan
+    are the new parameters'), and the old optimizer's per-parameter
+    state (momentum, Adam's moments) rewritten by the same plan. The
+    caller drops the old pair."""
+    from horovod_tpu_torch.optim.optimizer import (load_named_state,
+                                                   named_state)
+    rewrite = plan.pad if mode == NHWC_PADDED else plan.strip
+    old = named_state(optimizer, model.named_parameters())
+    new_model = ResNet.from_state(rewrite(model.state_dict()), model.depth)
+    keys = {k for st in old.values() for k, v in st.items()
+            if torch.is_tensor(v) and v.dim()}
+    state = {n: dict(st) for n, st in old.items()}
+    for key in keys:
+        moved = rewrite({n: st[key] for n, st in old.items() if key in st})
+        for n, v in moved.items():
+            state[n][key] = v
+    new_opt = make_optimizer(new_model)
+    load_named_state(new_opt, new_model.named_parameters(), state)
+    return new_model, new_opt
+
+
 def apply(model: ResNet, x, train: bool = True,
           group=None) -> Tuple[torch.Tensor, Stats]:
     """x: (N, H, W, 3) NHWC. Returns (logits, new_batch_stats)."""
@@ -268,26 +375,29 @@ def loss_fn(model: ResNet, batch, train: bool = True,
     return loss, new_stats
 
 
-def fused_sites(depth: int, batch: int, image_size: int):
+def fused_sites(depth: int, batch: int, image_size: int,
+                widths: Optional[Mapping[str, int]] = None):
     """The 1x1 sites that `apply` routes through the fused kernels, as
-    (block, site, M, Cin, C) rows for a batch of `image_size`² images.
-    The same rule as `apply`: cin, cout <= 1024; projections only at
-    stride 1."""
+    (block, site, M, Cin, C) rows for a batch of `image_size`² images at
+    the declared widths or `widths`. The same rule as `apply`: cin, cout
+    <= 1024; projections only at stride 1."""
+    w = declared_widths(depth) if widths is None else widths
     res = -(-(-(-image_size // 2)) // 2)  # stem /2, maxpool /2
     sites = []
-    cin = 64
+    cin = w["stem"]
     for s, n in enumerate(STAGE_BLOCKS[depth]):
-        width = 64 * (2 ** s)
+        cout = w[f"s{s}"]
         for b in range(n):
             stride = 2 if (b == 0 and s > 0) else 1
             out_res = -(-res // stride)
             m_in, m_out = batch * res * res, batch * out_res * out_res
             name = f"s{s}b{b}"
-            if cin <= 1024 and width <= 1024:
-                sites.append((name, "conv1", m_in, cin, width))
-            if width <= 1024 and width * 4 <= 1024:
-                sites.append((name, "conv3", m_out, width, width * 4))
-            if b == 0 and stride == 1 and cin <= 1024 and width * 4 <= 1024:
-                sites.append((name, "proj", m_in, cin, width * 4))
-            cin, res = width * 4, out_res
+            c1, c2 = w[f"{name}.c1"], w[f"{name}.c2"]
+            if cin <= 1024 and c1 <= 1024:
+                sites.append((name, "conv1", m_in, cin, c1))
+            if c2 <= 1024 and cout <= 1024:
+                sites.append((name, "conv3", m_out, c2, cout))
+            if b == 0 and stride == 1 and cin <= 1024 and cout <= 1024:
+                sites.append((name, "proj", m_in, cin, cout))
+            cin, res = cout, out_res
     return sites

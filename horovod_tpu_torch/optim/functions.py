@@ -30,14 +30,16 @@ Params = Union[Mapping[str, torch.Tensor], Iterable[Tuple[str, torch.Tensor]]]
 def broadcast_parameters(params: Params, root_rank: int = 0,
                          process_set: Optional[ProcessSet] = None) -> None:
     """Overwrite every tensor of `params` (a state_dict or
-    named_parameters()) with the root rank's, in place."""
+    named_parameters()) with the root rank's, in place; each broadcast
+    is named after its tensor, as in the reference."""
     items = params.items() if isinstance(params, Mapping) else params
-    for _name, t in sorted(items, key=lambda kv: kv[0]):
+    for name, t in sorted(items, key=lambda kv: kv[0]):
         if t.is_contiguous():
-            collectives.broadcast_(t.data, root_rank,
+            collectives.broadcast_(t.data, root_rank, name=name,
                                    process_set=process_set)
         else:
             t.copy_(collectives.broadcast_(t.contiguous(), root_rank,
+                                           name=name,
                                            process_set=process_set))
 
 

@@ -379,7 +379,7 @@ class DistributedOptimizer:
             wires = [w for w, _ in pairs]
             out = collectives.grouped_allreduce(
                 wires, op=T.Sum, prescale_factor=pre, postscale_factor=post,
-                process_set=ps)
+                name=f"grad.axes.{'+'.join(ax)}", process_set=ps)
             for i, r, (_, ctx) in zip(idx, out, pairs):
                 r = self.compression.decompress(r, ctx)
                 grads[i].copy_(r / k if rop == T.ReduceOp.AVERAGE and k != 1
@@ -671,14 +671,14 @@ class DistributedOptimizer:
                                        self.gradient_predivide_factor)
         dense = [p for i, p in enumerate(self.params) if i not in sparse]
         calls, nbytes, pending = 2 * len(sparse), 0, []
-        for plan in group_plan(self.groups, dense):
+        for g, plan in enumerate(group_plan(self.groups, dense)):
             pairs = [self.compression.compress(p.grad) for p in plan]
             wires = [w for w, _ in pairs]
             nbytes += sum(w.numel() * w.element_size() for w in wires)
             calls += self._calls(plan, wires)
             pending.append((plan, pairs, collectives.grouped_allreduce_async(
                 wires, op=rop, prescale_factor=pre, postscale_factor=post,
-                process_set=ps)))
+                name=f"grad.group.{g}", process_set=ps)))
         for plan, pairs, h in pending:
             for p, r, (_, ctx) in zip(plan, h.wait(), pairs):
                 p.grad.copy_(self.compression.decompress(r, ctx))

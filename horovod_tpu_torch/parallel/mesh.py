@@ -239,7 +239,7 @@ def build_mesh(spec: MeshSpec) -> Mesh:
         raise HorovodError(
             f"mesh spec {spec.sizes()} needs {spec.total} devices, "
             f"got {size}")
-    table = process_sets._table()
+    table = process_sets._current_table()
     for axis in AXIS_ORDER:
         for group in spec.axis_groups(axis):
             table.register(process_sets.ProcessSet(group))
@@ -325,7 +325,7 @@ def axes_process_set(axes: Union[str, Sequence[str]],
     if names in m._sets:
         return m._sets[names]
     from horovod_tpu_torch.core import process_sets, topology
-    table = process_sets._table()
+    table = process_sets._current_table()
     mine = None
     for group in m.spec.axis_groups(names):
         ps = process_sets.ProcessSet(group)

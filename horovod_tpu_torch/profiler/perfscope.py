@@ -323,10 +323,10 @@ class PerfScope:
         w = st.weight if st.weight > 0 else 1.0
         wall /= w
         phases = {k: v / w for k, v in st.phases.items() if v > 0.0}
-        self._recent.append((wall, phases))
-        self._steps += 1
-        self._last = (wall, phases)
-        self._gauge_phases.update(phases)
+        self._recent.append((wall, phases))  # hvdlint: disable=HVD101 -- _record runs under its callers' `with self._lock`
+        self._steps += 1  # hvdlint: disable=HVD101 -- _record runs under its callers' `with self._lock`
+        self._last = (wall, phases)  # hvdlint: disable=HVD101 -- _record runs under its callers' `with self._lock`
+        self._gauge_phases.update(phases)  # hvdlint: disable=HVD101 -- _record runs under its callers' `with self._lock`
         return True
 
     def _after_record(self, recorded: bool, closed: bool = False,

@@ -158,11 +158,13 @@ class InferenceEngine:
         with self._lock:
             got = self._graphs.get(key)
             if got is None:
-                got = self._capture(key)
+                if self._pool is None:
+                    self._pool = torch.cuda.graph_pool_handle()
+                got = self._capture(key, self._pool)
                 self._graphs[key] = got
         return got
 
-    def _capture(self, key: Tuple) -> _Captured:
+    def _capture(self, key: Tuple, pool) -> _Captured:
         from horovod_tpu_torch.observability import flight
         from horovod_tpu_torch.profiler import perfscope
         from horovod_tpu_torch.serve import telemetry
@@ -183,10 +185,8 @@ class InferenceEngine:
                     self.infer_fn(self.model, static_in)
                 torch.cuda.current_stream(self.device).wait_stream(side)
                 torch.cuda.synchronize(self.device)
-                if self._pool is None:
-                    self._pool = torch.cuda.graph_pool_handle()
                 graph = torch.cuda.CUDAGraph()
-                with torch.cuda.graph(graph, pool=self._pool, stream=side):
+                with torch.cuda.graph(graph, pool=pool, stream=side):
                     static_out = self.infer_fn(self.model, static_in)
             torch.cuda.synchronize(self.device)
         except Exception as e:

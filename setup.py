@@ -29,5 +29,7 @@ setup(
     },
     package_data={"horovod_tpu.native": ["Makefile", "src/*.cc"],
                   # the port's CUDA kernels build from these at first use
-                  "horovod_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"]},
+                  "horovod_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"],
+                  # hvdlint's checked-in (empty) baseline for the port
+                  "horovod_tpu_torch.analysis": ["hvdlint_baseline.json"]},
 )
