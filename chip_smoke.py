@@ -289,7 +289,33 @@ Phases, each fatal on failure:
      requests from RACE_CLIENTS threads and an async checkpoint beside a
      ResNet-50 step, with no race report and no stale annotation; then
      `python -m horovod_tpu_torch.analysis horovod_tpu_torch` with the
-     empty baseline exits 0.
+     empty baseline exits 0;
+ 17. frontends and orchestration — (a) which of tensorflow, keras,
+     pandas, pyarrow, fsspec, cloudpickle, pyspark, ray and mxnet this
+     machine has (the only condition a later part tests); (b)
+     spark.elastic.run_elastic with its agents in threads
+     (thread_agent_runner) and one worker, given no CPU request, that
+     trains ResNet-50 at full width (224², bf16, batch 32,
+     HOROVOD_CONV_BLOCK=1) from phase 4's seed-0 weights on phase 4's
+     batch for ORCH_STEPS steps: elastic NCCL on the card (cuda:0, local
+     rank 0), its first loss
+     within TOL_LAUNCHED_LOSS of phase 4's first block-route loss, 28
+     launches of kernels 1 and 2 a step from the worker's counters, its
+     ms a step; (c) where pandas and pyarrow are present, TorchEstimator
+     on the same model, route and seed-0 weights through LocalBackend(1)
+     (no CPU request) on a frame of phase 4's batch (float32 images, int64
+     labels), batch 32, ESTIMATOR_EPOCHS epochs of one step, no shuffle:
+     epoch 1's loss within TOL_LAUNCHED_LOSS of the same loss, 28 + 28
+     launches in the worker's first step (its rank-0 callback), and
+     `transform` of TRANSFORM_ROWS rows on the card (TorchModel's own
+     copy of the module; the stored one stays on the host) within
+     TOL_TRANSFORM of the trained module's eval forward; (d) where
+     tensorflow is
+     present, allreduce of a TF tensor through the port with Sum and
+     Average, eagerly and in a tf.function, bit for bit against numpy.
+     A part whose package is absent prints `not run: <package> absent
+     on this machine`. `spark_elastic_cards()`, outside this run,
+     repeats (b) with ELASTIC_CARDS workers, one card each.
 Then the `kernels` JSON line, the card's name and power limit, and last
 {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
 
@@ -5169,6 +5195,363 @@ def layout_path() -> dict:
     return out
 
 
+# ------------------------------ phase 17: frontends and orchestration
+
+FRAMEWORKS = ("tensorflow", "keras", "pandas", "pyarrow", "fsspec",
+              "cloudpickle", "pyspark", "ray", "mxnet")
+ORCH_STEPS = 3             # phase 17 (b): the Spark-elastic worker's steps
+ORCH_TIMEOUT_S = 400       # phase 17 (b), (c): one job's bound
+ESTIMATOR_EPOCHS = 2       # phase 17 (c): one step an epoch (32 rows)
+TRANSFORM_ROWS = 8
+ELASTIC_CARDS = 2          # spark_elastic_cards: workers, one card each
+# phase 17 (c): TorchModel.transform against the trained module's own
+# eval-mode forward on the same 8 rows, max|Δ| / max|ref|: the same
+# module, input and card, so only a library choice of another call
+# could move it; one bf16 step of the logits' scale.
+TOL_TRANSFORM = 2.0 ** -7
+BLOCK_ENV = {"HOROVOD_CONV_BLOCK": "1", "HOROVOD_FUSE_CONV_BN": "0"}
+
+
+def frameworks() -> dict:
+    """Phase 17 (a): which of FRAMEWORKS this machine has."""
+    import importlib.util
+    return {m: importlib.util.find_spec(m) is not None for m in FRAMEWORKS}
+
+
+def spark_elastic_worker(steps: int = ORCH_STEPS) -> dict:
+    """One rank of phase 17 (b), run by a Spark-elastic agent's worker:
+    `hvd.init()` as the estimator's trainers call it (the card, since
+    no CPU request is passed), ResNet-50 at full width from phase 4's
+    seed-0 weights on phase 4's batch, `steps` steps with the launch
+    counters set to 0 just before and read just after."""
+    import torch
+    import torch.distributed as dist
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import synthetic_benchmark as sb
+    from horovod_tpu_torch.core import topology
+    from horovod_tpu_torch.spark.backend import worker_device
+
+    hvd.init(device=worker_device())
+    try:
+        dev = hvd.device()
+        model = sb.build("resnet50", torch.bfloat16, dev)
+        opt = sb.make_optimizer(model)
+        batch = sb.make_batch(32, 224, torch.bfloat16, dev, seed=hvd.rank())
+        reset_counters()
+        losses, ms = [], []
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            losses.append(sb.train_step(model, opt, batch,
+                                        dist.group.WORLD).item())
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return {"losses": losses, "step_ms": ms, "launches": read_counters(),
+                "device": (torch.cuda.get_device_name(dev)
+                           if dev.type == "cuda" else str(dev)),
+                "card": dev.index, "local_rank": hvd.local_rank(),
+                "backend": dist.get_backend(), "world": hvd.size(),
+                "elastic": topology.config().elastic}
+    finally:
+        hvd.shutdown()
+
+
+def _bounded(fn, what: str, timeout: float = ORCH_TIMEOUT_S):
+    """fn() in a daemon thread, its result or its exception; Failed past
+    `timeout` seconds."""
+    import threading
+    box = {}
+
+    def run():
+        try:
+            box["out"] = fn()
+        except BaseException as e:  # noqa: BLE001 — re-raised below
+            box["err"] = e
+
+    t = threading.Thread(target=run, daemon=True)
+    t.start()
+    t.join(timeout)
+    need(not t.is_alive(), f"{what}: still running after {timeout} s")
+    if "err" in box:
+        raise box["err"]
+    return box["out"]
+
+
+def spark_elastic_part(block_loss: float) -> dict:
+    """Phase 17 (b): spark.elastic.run_elastic with its agents in threads
+    (thread_agent_runner) and one worker on the card."""
+    import torch
+    from horovod_tpu_torch.spark import elastic as spe
+    # By its module's name (pickle refers to a function by its module).
+    from chip_smoke import spark_elastic_worker as worker
+    t0 = time.perf_counter()
+    res = _bounded(lambda: spe.run_elastic(
+        worker, num_proc=1, start_timeout=120, elastic_timeout=300,
+        extra_env=dict(BLOCK_ENV),
+        _agent_runner=spe.thread_agent_runner()), "phase 17 (b)")
+    wall = time.perf_counter() - t0
+    need(len(res) == 1 and res[0] is not None,
+         f"phase 17 (b): results {res}")
+    r = res[0]
+    losses = r["losses"]
+    rel = abs(losses[0] - block_loss) / max(abs(block_loss), 1e-6)
+    per_step = {k: v / ORCH_STEPS for k, v in r["launches"].items()}
+    step_ms = sum(r["step_ms"][1:]) / (ORCH_STEPS - 1)
+    print(f"(b) spark elastic: worker on {r['device']} ({r['backend']}, "
+          f"elastic {r['elastic']}, world {r['world']}); losses "
+          f"{[round(v, 6) for v in losses]}, phase 4's first "
+          f"{block_loss:.6f}, relative difference {rel:.3g} (tolerance "
+          f"{TOL_LAUNCHED_LOSS}); {step_ms:.2f} ms a step after the "
+          f"first ({r['step_ms'][0]:.1f} ms); launches a step {per_step}; "
+          f"{wall:.1f} s")
+    need(r["device"] == torch.cuda.get_device_name(0) and r["card"] == 0
+         and r["local_rank"] == 0 and r["backend"] == "nccl"
+         and r["elastic"],
+         "phase 17 (b): the worker did not run elastic NCCL on the card")
+    need(all(math.isfinite(v) for v in losses),
+         f"phase 17 (b): non-finite loss {losses}")
+    need(per_step["fwd"] == 28 and per_step["act_bwd"] == 28
+         and per_step["bn_bwd"] == 0,
+         f"phase 17 (b): expected 28 + 28 launches a step, got "
+         f"{r['launches']}")
+    need(rel <= TOL_LAUNCHED_LOSS, "phase 17 (b): the first loss disagrees "
+         "with phase 4's")
+    return dict(r, loss_phase4=block_loss, loss_rel=rel,
+                step_ms_after_first=step_ms, seconds=wall)
+
+
+def spark_elastic_cards() -> list:
+    """Spark elastic on one machine of ELASTIC_CARDS or more cards (not
+    part of the one-card run; .claude/skills/verify/SKILL.md gives the
+    command): ELASTIC_CARDS threaded agents, each worker training
+    ResNet-50 as in phase 17 (b), must form one NCCL world whose local
+    ranks 0, 1, ... hold cards cuda:0, cuda:1, ..., 28 + 28 launches a
+    step each."""
+    import torch
+    from horovod_tpu_torch import kernels
+    from horovod_tpu_torch.spark import elastic as spe
+    from chip_smoke import spark_elastic_worker as worker
+    num_proc = ELASTIC_CARDS
+    need(torch.cuda.device_count() >= num_proc,
+         f"spark elastic on cards: {torch.cuda.device_count()} card(s), "
+         f"{num_proc} asked for")
+    kernels.build_all(kernels.CONV_SOURCES)  # once, before the workers
+    t0 = time.perf_counter()
+    res = _bounded(lambda: spe.run_elastic(
+        worker, num_proc=num_proc, min_num_proc=num_proc,
+        start_timeout=120, elastic_timeout=300, extra_env=dict(BLOCK_ENV),
+        _agent_runner=spe.thread_agent_runner()), "spark elastic on cards")
+    wall = time.perf_counter() - t0
+    need(len(res) == num_proc and all(r is not None for r in res),
+         f"spark elastic on cards: results {res}")
+    for rank, r in enumerate(res):
+        print(f"spark elastic on cards: rank {rank} local rank "
+              f"{r['local_rank']} on cuda:{r['card']} ({r['device']}, "
+              f"{r['backend']}, world {r['world']}); losses "
+              f"{[round(v, 6) for v in r['losses']]}; "
+              f"{sum(r['step_ms'][1:]) / (ORCH_STEPS - 1):.2f} ms a step "
+              f"after the first; launches {r['launches']}")
+    print(f"spark elastic on cards: {wall:.1f} s")
+    need(sorted(r["card"] for r in res) == list(range(num_proc))
+         and all(r["card"] == r["local_rank"] for r in res),
+         "spark elastic on cards: the workers did not take one card each")
+    need(all(r["backend"] == "nccl" and r["world"] == num_proc
+             and r["elastic"] for r in res),
+         "spark elastic on cards: not one elastic NCCL world")
+    need(all(math.isfinite(v) for r in res for v in r["losses"]),
+         "spark elastic on cards: non-finite loss")
+    need(all(r["launches"]["fwd"] == 28 * ORCH_STEPS
+             and r["launches"]["act_bwd"] == 28 * ORCH_STEPS for r in res),
+         "spark elastic on cards: expected 28 + 28 launches a step")
+    return res
+
+
+def _estimator_resnet():
+    """(module, loss) for phase 17 (c): ResNet-50 from the seed-0 weights
+    (built on the host, as the estimator ships it) taking float32 NHWC
+    images, cast to the model's bf16, and giving f32 logits; in training
+    it installs each step's batch stats, as synthetic_benchmark.
+    train_step does; the loss is resnet.loss_fn's cross-entropy. Both
+    travel to the worker by value (cloudpickle)."""
+    import torch
+    import torch.distributed as dist
+    from horovod_tpu_torch.models import resnet
+
+    class EstimatorResNet(torch.nn.Module):
+        def __init__(self, net):
+            super().__init__()
+            self.net = net
+
+        def forward(self, x):
+            group = dist.group.WORLD if self.training \
+                and dist.is_initialized() else None
+            logits, stats = self.net(x.to(torch.bfloat16),
+                                     train=self.training, group=group)
+            if self.training:
+                self.net.set_stats(stats)
+            return logits.float()
+
+    def xent(preds, y):
+        return -torch.log_softmax(preds, dim=-1).gather(1, y[:, None]).mean()
+
+    net = resnet.ResNet(depth=50, dtype=torch.bfloat16, device="cpu", seed=0)
+    return EstimatorResNet(net), xent
+
+
+def estimator_part(block_loss: float) -> dict:
+    """Phase 17 (c): TorchEstimator on ResNet-50 through LocalBackend(1)
+    (no CPU request), then TorchModel.transform on the card."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import pandas as pd
+    import torch
+    from horovod_tpu_torch import spark as hs
+    from horovod_tpu_torch import synthetic_benchmark as sb
+
+    dev = torch.device("cuda", 0)
+    x, y = sb.make_batch(32, 224, torch.bfloat16, dev, seed=0)  # phase 4's
+    imgs = x.float().cpu().numpy()  # exact: every bf16 is an f32
+    df = pd.DataFrame({"img": list(imgs),
+                       "label": y.cpu().numpy().astype(np.int64)})
+    tmp = tempfile.mkdtemp(prefix="hvd_estimator_")
+    counts_path = os.path.join(tmp, "launches.jsonl")
+
+    def on_epoch(epoch, logs, _path=counts_path):
+        # Rank 0's callback, in the worker after each epoch: the
+        # worker's cumulative launches (0 at its start).
+        import json as _json
+
+        from horovod_tpu_torch.core import topology as _top
+        from horovod_tpu_torch.ops import conv_block as _cb
+        from horovod_tpu_torch.ops import conv_bn_backward as _cbb
+        with open(_path, "a") as f:
+            f.write(_json.dumps({
+                "epoch": epoch, "device": str(_top.device()),
+                "fwd": _cb.conv1x1_fwd_fused.launches,
+                "act_bwd": _cb.conv1x1_bn_act_bwd_fused.launches,
+                "bn_bwd": _cbb.conv1x1_bn_bwd_fused.launches}) + "\n")
+
+    model, loss = _estimator_resnet()
+    try:
+        t0 = time.perf_counter()
+        est = hs.TorchEstimator(
+            model=model, loss=loss,
+            optimizer=lambda ps: torch.optim.SGD(ps, lr=0.01, momentum=0.9),
+            featureCols=["img"], labelCols=["label"],
+            store=hs.LocalStore(os.path.join(tmp, "store")), batchSize=32,
+            epochs=ESTIMATOR_EPOCHS, shuffle=False, callbacks=[on_epoch],
+            backend=hs.LocalBackend(1, extra_env=dict(BLOCK_ENV)),
+            verbose=0)
+        fitted = _bounded(lambda: est.fit(df), "phase 17 (c) fit")
+        fit_s = time.perf_counter() - t0
+        with open(counts_path) as f:
+            counts = [json.loads(line) for line in f]
+        t0 = time.perf_counter()
+        out = fitted.transform(df.head(TRANSFORM_ROWS))
+        transform_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    preds = np.stack(out["label__output"].to_list())
+    # transform ran on the device of TorchModel's copy; the stored module
+    # stays on the host
+    on = fitted._built[0]
+    stored_on = next(fitted.getModel().parameters()).device
+    trained = copy.deepcopy(fitted.getModel()).to(on)
+    with torch.no_grad():
+        trained.eval()
+        ref = trained(torch.from_numpy(imgs[:TRANSFORM_ROWS]).to(on)).cpu()
+    err = float(np.max(np.abs(preds - ref.numpy()))) / max(
+        float(ref.abs().max()), 1e-6)
+    losses = [h["loss"] for h in fitted.history]
+    rel = abs(losses[0] - block_loss) / max(abs(block_loss), 1e-6)
+    print(f"(c) torch estimator: fit {fit_s:.1f} s, worker on "
+          f"{counts[0]['device']}; epoch losses "
+          f"{[round(v, 6) for v in losses]}, phase 4's first "
+          f"{block_loss:.6f}, relative difference {rel:.3g} (tolerance "
+          f"{TOL_LAUNCHED_LOSS}); launches after step 1 {counts[0]}; "
+          f"transform of {TRANSFORM_ROWS} rows on {on} (the stored "
+          f"module on {stored_on}) in "
+          f"{transform_s:.2f} s, against the module's eval forward "
+          f"{err:.3g} (tolerance {TOL_TRANSFORM})")
+    need(counts[0]["device"].startswith("cuda"),
+         "phase 17 (c): the estimator's worker did not take the card")
+    need(counts[0]["fwd"] == 28 and counts[0]["act_bwd"] == 28
+         and counts[0]["bn_bwd"] == 0,
+         f"phase 17 (c): expected 28 + 28 launches in the first step, got "
+         f"{counts[0]}")
+    need(len(losses) == ESTIMATOR_EPOCHS
+         and all(math.isfinite(v) for v in losses),
+         f"phase 17 (c): losses {losses}")
+    need(rel <= TOL_LAUNCHED_LOSS, "phase 17 (c): epoch 1's loss disagrees "
+         "with phase 4's first")
+    need(on.type == "cuda", "phase 17 (c): transform did not run on the "
+         "card")
+    need(stored_on.type == "cpu", "phase 17 (c): transform moved the "
+         "stored module off the host")
+    need(preds.shape == (TRANSFORM_ROWS, 1000) and np.isfinite(preds).all(),
+         f"phase 17 (c): transform gave {preds.shape}")
+    need(err <= TOL_TRANSFORM, "phase 17 (c): transform disagrees with the "
+         "module's eval forward")
+    return {"losses": losses, "loss_phase4": block_loss, "loss_rel": rel,
+            "launches_step1": counts[0], "fit_s": fit_s,
+            "transform_s": transform_s, "transform_err": err}
+
+
+def tf_part() -> dict:
+    """Phase 17 (d): allreduce of a TF tensor through the port, Sum and
+    Average, eagerly and in a tf.function, bit for bit against numpy in
+    a world of one."""
+    import numpy as np
+    import tensorflow as tf
+    import torch
+    import horovod_tpu_torch as hvd
+    import horovod_tpu_torch.frontends.tensorflow as tfvd
+
+    tfvd.init()
+    try:
+        dev = hvd.device()
+        x = np.random.default_rng(0).standard_normal((1024, 256)).astype(
+            np.float32)
+        t = tf.constant(x)
+        graph = tf.function(lambda a, op: tfvd.allreduce(a, op=op))
+        out = {}
+        for name in ("Sum", "Average"):
+            op = getattr(tfvd, name)
+            out[f"{name}_eager"] = bool(np.array_equal(
+                tfvd.allreduce(t, op=op).numpy(), x))
+            out[f"{name}_graph"] = bool(np.array_equal(
+                graph(t, op).numpy(), x))
+        print(f"(d) TF frontend: allreduce on {dev} "
+              f"({torch.cuda.get_device_name(dev)}), bit for bit against "
+              f"numpy: {out}")
+        need(dev.type == "cuda" and all(out.values()),
+             f"phase 17 (d): {out} on {dev}")
+        return {"device": str(dev), "bitwise": out}
+    finally:
+        tfvd.shutdown()
+
+
+def frontends_path(block_loss: float) -> dict:
+    """Phase 17 (see the module docstring)."""
+    have = frameworks()
+    print("(a) frameworks on this machine: " + ", ".join(
+        f"{m} {'present' if ok else 'absent'}" for m, ok in have.items()))
+    out = {"frameworks": have, "b": spark_elastic_part(block_loss)}
+    missing = [m for m in ("pandas", "pyarrow") if not have[m]]
+    if missing:
+        print(f"(c) torch estimator: not run: {missing[0]} absent on this "
+              f"machine")
+        out["c"] = None
+    else:
+        out["c"] = estimator_part(block_loss)
+    if have["tensorflow"]:
+        out["d"] = tf_part()
+    else:
+        print("(d) TF frontend: not run: tensorflow absent on this machine")
+        out["d"] = None
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5250,6 +5633,8 @@ def main() -> int:
     lap("15 tensor, pipeline and expert parallelism")
     layout_run = layout_path()
     lap("16 the layout pass, its tuner, hvdrace and hvdlint")
+    frontends = frontends_path(path["block"]["losses"][0])
+    lap("17 frontends and orchestration")
     print(f"total: {time.perf_counter() - t0:.1f} s")
 
     src = "horovod_tpu_torch/csrc/"
@@ -5301,6 +5686,7 @@ def main() -> int:
                    "serving_path": serving,
                    "parallel_path": parallel,
                    "layout_path": layout_run,
+                   "frontends_path": frontends,
                    "phase_s": phase_s,
                    "nvidia_smi": smi}, f, indent=1)
     print(json.dumps(line))

@@ -219,6 +219,13 @@ class CheckpointableState:
             return False
         return self.checkpoint()
 
+    def _ckpt_like(self):
+        """The tree a restore matches the checkpoint's leaves against.
+        None (the torch states): the tree is rebuilt from the manifest's
+        dict-addressed keypaths, since a fresh process may hold no
+        optimizer state yet to match against."""
+        return None
+
     def maybe_resume(self) -> bool:
         """Rank 0's restore probe: True when it restored from disk.
         ``last_resume_source`` records the decision ("checkpoint",
@@ -242,9 +249,7 @@ class CheckpointableState:
                          f"source=memory")
             self.last_resume_source = "memory"
             return False
-        # No `like`: a fresh process may hold no optimizer state yet, and
-        # every leaf of the port's payload is dict-addressed.
-        got = self._ckpt.restore_latest()
+        got = self._ckpt.restore_latest(like=self._ckpt_like())
         if got is None:
             return False
         self._ckpt_adopt(got.tree, got.objects)

@@ -61,3 +61,21 @@ class PerRankResults:
                 + "\n".join(parts))
         return [self._by_rank[r][1] for r in range(self.size)]
 
+
+class RestartPolicy:
+    """Decides whether a failed worker may be restarted (reference:
+    ray/elastic_v2.py retries failed workers within limits)."""
+
+    def __init__(self, max_restarts: int = 3):
+        self.max_restarts = max_restarts
+        self._restarts: Dict[int, int] = {}
+
+    def should_restart(self, rank: int) -> bool:
+        return self._restarts.get(rank, 0) < self.max_restarts
+
+    def record_restart(self, rank: int) -> int:
+        self._restarts[rank] = self._restarts.get(rank, 0) + 1
+        return self._restarts[rank]
+
+    def restarts(self, rank: int) -> int:
+        return self._restarts.get(rank, 0)

@@ -191,6 +191,24 @@ def test_every_horovod_name_exists_in_the_port(module):
     assert set(EXCEPTED) <= _public(jtorch) | _public(horovod_tpu)
 
 
+FRONTENDS = ["torch", "torch_elastic", "tensorflow", "tensorflow_elastic",
+             "keras", "mxnet"]
+
+
+@pytest.mark.parametrize("name", FRONTENDS)
+def test_every_frontend_name_exists_in_the_port(name):
+    """Each JAX frontend module's public names are the port's module's
+    too (horovod_tpu_torch/frontends/, without importing the framework);
+    typing names are imports, not API."""
+    import importlib
+    jmod = importlib.import_module(f"horovod_tpu.frontends.{name}")
+    tmod = importlib.import_module(f"horovod_tpu_torch.frontends.{name}")
+    typing_names = {"Any", "Dict", "Iterable", "Iterator", "List",
+                    "Optional", "Tuple", "annotations"}
+    missing = _public(jmod) - typing_names - _public(tmod)
+    assert not missing, sorted(missing)
+
+
 def test_status_matches_the_jax_package():
     from horovod_tpu.common import types as jtypes
     assert [(m.name, m.value) for m in hvd.StatusType] == \

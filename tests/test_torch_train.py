@@ -184,7 +184,17 @@ def test_package_imports_no_jax_at_runtime():
             "horovod_tpu_torch.observability.tracing, "
             "horovod_tpu_torch.testing.faults, "
             "horovod_tpu_torch.core.consistency, "
-            "horovod_tpu_torch.analysis.verifier;"
+            "horovod_tpu_torch.analysis.verifier, "
+            "horovod_tpu_torch.frontends, horovod_tpu_torch.frontends.torch, "
+            "horovod_tpu_torch.frontends.torch_elastic, "
+            "horovod_tpu_torch.frontends.tensorflow, "
+            "horovod_tpu_torch.frontends.tensorflow_elastic, "
+            "horovod_tpu_torch.frontends.keras, "
+            "horovod_tpu_torch.frontends.mxnet, horovod_tpu_torch.spark, "
+            "horovod_tpu_torch.spark.params, horovod_tpu_torch.spark.store, "
+            "horovod_tpu_torch.spark.util, horovod_tpu_torch.spark.backend, "
+            "horovod_tpu_torch.spark.estimator, "
+            "horovod_tpu_torch.spark.elastic, horovod_tpu_torch.ray;"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'horovod_tpu', 'optax')];"
             "print(bad); sys.exit(1 if bad else 0)")
