@@ -316,6 +316,20 @@ Phases, each fatal on failure:
      A part whose package is absent prints `not run: <package> absent
      on this machine`. `spark_elastic_cards()`, outside this run,
      repeats (b) with ELASTIC_CARDS workers, one card each.
+ 18. the analyzers of recorded step programs — (a) phase 4's ResNet-50
+     block-route step (224², bf16, batch 32, seed-0 weights and batch,
+     its first step) recorded by horovod_tpu_torch/analysis/graph.py:
+     exactly 28 + 28 kernel ops (conv1x1_fwd_fused,
+     conv1x1_bn_act_bwd_fused) and 28 + 28 launches, one all-reduce per
+     bucket of the plan whose payloads sum to the gradients' bytes, and
+     a loss equal to phase 4's first bit for bit; (b) phase 5's flagship
+     LM step (Adam, after one step that makes its state): 12 + 12 + 12
+     kernel ops and launches of kernels 4-6; for each, every family's
+     findings by rule (hvdhlo, hvdshard, hvdsched, hvdnum), the HVD303
+     peak-memory estimate beside torch.cuda.max_memory_allocated of the
+     same step and their ratio, and the seconds; (c) phase 14's serving
+     engine's hvdhlo stamp over buckets 1, 2, 4, 8 (each bucket's
+     warm-up recorded): no error, 12 kernel-4 ops in each program.
 Then the `kernels` JSON line, the card's name and power limit, and last
 {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
 
@@ -3782,7 +3796,10 @@ def serving_in_process(tmp: str) -> dict:
           f"{ckpt_s:.1f} s")
     out = dict(capture_s=cap_s, warmup_s=warm_s, buckets=buckets,
                pad_err=pad_err, row_err=row_err, compiles=eng.compiles,
-               capture_wrapper_calls=capture_calls, ckpt_s=ckpt_s)
+               capture_wrapper_calls=capture_calls, ckpt_s=ckpt_s,
+               hlo_lint=eng.hlo_lint(),
+               kernel_ops={b: _kernel_ops(p)
+                           for b, p in eng.lint_programs().items()})
     del eng, model, g
     gc.collect()
     torch.cuda.empty_cache()
@@ -5552,6 +5569,166 @@ def frontends_path(block_loss: float) -> dict:
     return out
 
 
+# -------------------- phase 18: the analyzers of recorded step programs
+
+ANALYZER_FAMILIES = ("hlo", "shard", "sched", "num")
+
+
+def _kernel_ops(prog) -> dict:
+    """custom_call ops of a recorded program by kernel name."""
+    out = {}
+    for op in prog.ops:
+        if op.opcode == "custom_call":
+            name = op.attrs.split('custom_call_target="')[1].split('"')[0]
+            out[name] = out.get(name, 0) + 1
+    return out
+
+
+def _findings_by_rule(prog) -> dict:
+    """Every family's findings on one recorded program, by rule."""
+    from horovod_tpu_torch.analysis import hlo, numerics, schedule, shard
+    fs = (hlo.lint_program(prog) + shard.lint_program(prog)
+          + schedule.lint_programs([prog]) + numerics.lint_programs([prog]))
+    out = {}
+    for f in fs:
+        out[f.rule_id] = out.get(f.rule_id, 0) + 1
+    return out
+
+
+def _recorded_step(name, run, dev):
+    """Run `run()` (one training step) under the recorder, the launch
+    counters set to 0 just before and read just after and the peak memory
+    reset; returns (step output, program, launches, summary)."""
+    import torch
+    from horovod_tpu_torch.analysis import graph, shard
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counters()
+    t0 = time.perf_counter()
+    out, prog = graph.record(run, path=f"<phase18:{name}>")
+    torch.cuda.synchronize(dev)
+    step_s = time.perf_counter() - t0
+    launches = read_counters()
+    t1 = time.perf_counter()
+    rules = _findings_by_rule(prog)
+    est = shard.peak_memory(prog)
+    lint_s = time.perf_counter() - t1
+    peak = torch.cuda.max_memory_allocated(dev)
+    summary = dict(ops=len(prog.ops), params=len(prog.params),
+                   kernel_ops=_kernel_ops(prog), launches=launches,
+                   findings=rules, estimate_bytes=est.peak_bytes,
+                   max_memory_allocated=peak,
+                   ratio=est.peak_bytes / peak, record_s=step_s,
+                   lint_s=lint_s, device_memory=prog.device_memory)
+    print(f"({name}) recorded {len(prog.ops)} ops, {len(prog.params)} entry "
+          f"parameters in {step_s:.2f} s, linted in {lint_s:.2f} s; kernel "
+          f"ops {summary['kernel_ops']}; launches {launches}; findings by "
+          f"rule {json.dumps(rules, sort_keys=True)}")
+    print(f"({name}) HVD303 peak-memory estimate {est.peak_bytes / 1e9:.3f} "
+          f"GB, max_memory_allocated {peak / 1e9:.3f} GB, ratio "
+          f"{summary['ratio']:.4f} (HVD303's budget, the recording card's "
+          f"memory: {(prog.device_memory or 0) / 1e9:.1f} GB)")
+    return out, prog, launches, summary
+
+
+def analyzers_path(block_loss: float, serving: dict) -> dict:
+    """Phase 18 (see the module docstring)."""
+    import torch
+    import torch.distributed as dist
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import synthetic_benchmark as sb
+    from horovod_tpu_torch import transformer_lm as lm
+    from horovod_tpu_torch.models import transformer as tfm
+
+    out = {}
+    t0 = time.perf_counter()
+    hvd.init()
+    try:
+        dev = hvd.device()
+        # (a) phase 4's block-route step, its first, from the same weights
+        os.environ["HOROVOD_CONV_BLOCK"] = "1"
+        os.environ["HOROVOD_FUSE_CONV_BN"] = "0"
+        model = sb.build("resnet50", torch.bfloat16, dev)
+        opt = sb.make_optimizer(model)
+        data = sb.make_batch(32, 224, torch.bfloat16, dev, seed=hvd.rank())
+        loss, prog, launches, a = _recorded_step(
+            "a", lambda: sb.train_step(model, opt, data, dist.group.WORLD),
+            dev)
+        a["loss"] = float(loss)
+        # the gradient buckets' all-reduces (the sync-BN ones of the
+        # block route come from ops/sync_batch_norm.py)
+        payloads = [int(op.attrs.split("payload_bytes=")[1].split(",")[0])
+                    for op in prog.ops if op.opcode == "all_reduce"
+                    and "DistributedOptimizer._hook" in op.attrs]
+        grad_bytes = sum(p.numel() * p.element_size()
+                         for p in model.parameters() if p.requires_grad)
+        a.update(buckets=len(opt.plan), all_reduces=len(payloads),
+                 payloads=payloads, grad_bytes=grad_bytes)
+        print(f"(a) ResNet-50 224² bf16 batch 32: loss {a['loss']!r}, phase "
+              f"4's first {block_loss!r}; {len(payloads)} gradient "
+              f"all-reduces for the {len(opt.plan)}-bucket plan, payload "
+              f"MiB {[round(b / 2 ** 20, 2) for b in payloads]} (sum "
+              f"{sum(payloads)}, gradients {grad_bytes} bytes)")
+        need(a["kernel_ops"] == {"conv1x1_fwd_fused": 28,
+                                 "conv1x1_bn_act_bwd_fused": 28},
+             f"(a): kernel ops {a['kernel_ops']}, not 28 + 28")
+        need(launches["fwd"] == 28 and launches["act_bwd"] == 28
+             and sum(launches.values()) == 56,
+             f"(a): launches {launches}, not 28 + 28")
+        need(a["loss"] == block_loss, "(a): the recorded step's loss is not "
+             "phase 4's bit for bit")
+        need(prog.device_memory == torch.cuda.get_device_properties(
+            dev).total_memory, "(a): the program's budget is not the card's "
+             "memory")
+        need(len(payloads) == len(opt.plan) and sum(payloads) == grad_bytes,
+             "(a): the all-reduces are not the bucket plan's")
+        out["a"] = a
+        del model, opt, data, prog
+        torch.cuda.empty_cache()
+
+        # (b) phase 5's flagship LM step (Adam: one step first makes its
+        # state, which the recorded step then reads as entry tensors)
+        cfg = tfm.TransformerConfig(**lm.FLAGSHIP, attn="flash",
+                                    dtype=torch.bfloat16)
+        model, opt, step = lm.build(cfg, dev)
+        data = lm.make_batch(lm.FLAGSHIP_BATCH, cfg.max_seq, cfg.vocab, dev,
+                             seed=hvd.rank())
+        step(data)
+        loss, prog, launches, b = _recorded_step("b", lambda: step(data),
+                                                 dev)
+        b["loss"] = float(loss)
+        n = cfg.n_layers
+        need(b["kernel_ops"] == {"flash_fwd": n, "flash_bwd_dkdv": n,
+                                 "flash_bwd_dq": n},
+             f"(b): kernel ops {b['kernel_ops']}, not {n} + {n} + {n}")
+        need(launches["attn_fwd"] == n and launches["attn_dkdv"] == n
+             and launches["attn_dq"] == n,
+             f"(b): launches {launches}, not {n} + {n} + {n}")
+        need(math.isfinite(b["loss"]), "(b): non-finite loss")
+        out["b"] = b
+        del model, opt, step, data, prog
+        torch.cuda.empty_cache()
+    finally:
+        hvd.shutdown()
+
+    # (c) phase 14's engine: each bucket's warm-up recorded and linted
+    c = serving["in_process"]["hlo_lint"]
+    per = serving["in_process"]["kernel_ops"]
+    print(f"(c) serving stamp over buckets {sorted(per)}: "
+          f"{json.dumps(c, sort_keys=True)}; kernel ops per bucket "
+          f"{json.dumps(per, sort_keys=True)}")
+    need("error" not in c, f"(c): the stamp holds an error: "
+         f"{c.get('error')}")
+    need(c["programs"] == len(SERVE_BUCKETS)
+         and sorted(per) == list(SERVE_BUCKETS)
+         and all(k == {"flash_fwd": 12} for k in per.values()),
+         "(c): not 12 kernel-4 ops in each bucket's program")
+    out["c"] = dict(stamp=c, kernel_ops=per)
+    out["wall_s"] = time.perf_counter() - t0
+    print(f"phase 18 wall: {out['wall_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5635,6 +5812,8 @@ def main() -> int:
     lap("16 the layout pass, its tuner, hvdrace and hvdlint")
     frontends = frontends_path(path["block"]["losses"][0])
     lap("17 frontends and orchestration")
+    analyzers = analyzers_path(path["block"]["losses"][0], serving)
+    lap("18 the analyzers of recorded step programs")
     print(f"total: {time.perf_counter() - t0:.1f} s")
 
     src = "horovod_tpu_torch/csrc/"
@@ -5687,6 +5866,7 @@ def main() -> int:
                    "parallel_path": parallel,
                    "layout_path": layout_run,
                    "frontends_path": frontends,
+                   "analyzers_path": analyzers,
                    "phase_s": phase_s,
                    "nvidia_smi": smi}, f, indent=1)
     print(json.dumps(line))

@@ -9,12 +9,14 @@ OTHER, each in a fresh process from its own checkout (which builds its
 own kernels) and times with this checkout's `chip_smoke.device_ms`:
 `chip_smoke.time_kernels` in bf16 (kernels 1–3 at every
 fused site of a ResNet-50 step at batch 32), `chip_smoke.time_flash` at
-the LM's per-layer shape, then `chip_smoke.lm_path` (the flagship LM, 2
-warm-up and 5 timed steps). Prints one line per run, `AB <side>
-{json}`, with kernels 1–3's ms a step (summed over the 28 sites) and at
-each site, the flash kernels' ms a launch (and kernels 5 + 6 as one pair, where
-that checkout's chip_smoke times it), scaled_dot_product_attention's
-forward and backward ms, ms/step and tokens/s. --lm-only runs the LM
+the LM's per-layer shape, the host µs of one kernel-1 wrapper call
+(`conv1x1_fwd_fused` at M 1024, Cin = C = 64, 2000 calls after 100),
+then `chip_smoke.lm_path` (the flagship LM, 2 warm-up and 5 timed
+steps). Prints one line per run, `AB <side> {json}`, with kernels 1–3's
+ms a step (summed over the 28 sites) and at each site, the flash
+kernels' ms a launch (and kernels 5 + 6 as one pair, where that
+checkout's chip_smoke times it), scaled_dot_product_attention's forward
+and backward ms, `conv_wrapper_host_us`, ms/step and tokens/s. --lm-only runs the LM
 step alone (phase 5 of each checkout's chip_smoke), so that many rounds
 fit in one call; the last line, `AB summary {json}`, gives each side's
 LM ms/step: every run's, the median, the least and the most. Two
@@ -57,6 +59,21 @@ if sys.argv[3] != "lm":
            "dq": t["attn_dq"]["ms"], "sdpa_fwd": t["attn_fwd"]["library_ms"],
            "sdpa_bwd": t["attn_dkdv"]["library_ms"],
            "dkdv_dq": t.get("attn_bwd_pair", {}).get("ms")}
+    # Host µs of one kernel-1 wrapper call at a small site (Cin = C = 64,
+    # M = 1024), where the card finishes each launch long before the
+    # host issues the next: the loop's wall is the wrapper's host cost.
+    import time
+    from horovod_tpu_torch.ops import conv_block as cb
+    x = torch.randn(1024, 64, device=dev).to(torch.bfloat16)
+    w = torch.randn(64, 64, device=dev).to(torch.bfloat16)
+    for _ in range(100):
+        cb.conv1x1_fwd_fused(x, w)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(2000):
+        cb.conv1x1_fwd_fused(x, w)
+    res["conv_wrapper_host_us"] = (time.perf_counter() - t0) / 2000 * 1e6
+    torch.cuda.synchronize()
 hvd.init()
 lm = cs.lm_path()
 hvd.shutdown()

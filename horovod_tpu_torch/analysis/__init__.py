@@ -13,9 +13,15 @@
   lockset detector over the port's annotated runtime classes.
 * ``verifier`` (``HOROVOD_CHECK_COLLECTIVES=1``) cross-checks each
   rank's rolling fingerprint of its collectives.
-
-The analyzers of lowered XLA programs (hvdhlo, hvdshard, hvdsched,
-hvdnum) need an analog over torch graphs: ROADMAP A15.
+* the analyzers of step programs, ``--hlo`` (**hvdhlo**, HVD2xx,
+  ``hlo``/``hlo_rules``), ``--shard`` (**hvdshard**, HVD3xx,
+  ``shard``/``shard_rules``), ``--sched`` (**hvdsched**, HVD4xx and the
+  comms cost model, ``schedule``/``sched_rules``) and ``--num``
+  (**hvdnum**, HVD5xx, ``numerics``/``num_rules``), read one program
+  model: lowered StableHLO/HLO text, parsed as the JAX package parses
+  it, or a torch step recorded by ``graph`` (the port's counterpart of
+  lowering; ``--hlo-step``). Each family has an empty baseline beside
+  ``hvdlint_baseline.json``.
 """
 
 from horovod_tpu_torch.analysis.driver import (  # noqa: F401

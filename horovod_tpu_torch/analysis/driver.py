@@ -18,10 +18,13 @@ Findings also feed the process metrics registry
 (``hvdlint_findings_total{rule}``, observability/metrics.py) so lint runs
 wired into jobs surface in the same telemetry plane as the runtime.
 
-The JAX package's analyzers of lowered XLA programs (``--hlo``,
-``--shard``, ``--sched``, ``--num``, ``--hlo-step``) have no port yet:
-they need an analog over torch graphs (ROADMAP A15), and the options
-exit 2 saying so.
+The analyzers of step programs run in the same CLI: ``--hlo`` (HVD2xx),
+``--shard`` (HVD3xx), ``--sched`` (HVD4xx) and ``--num`` (HVD5xx) over
+lowered StableHLO/HLO text dumps, as the JAX CLI runs them, and
+``--hlo-step {lm,resnet_block,lm_sharded,lm_runtime}`` over the port's
+own canonical steps, recorded by analysis/graph.py (``--device cpu`` on
+the host; the card by default when there is one; the two dp x tp
+programs always in a gloo world of four on the host).
 """
 
 from __future__ import annotations
@@ -135,6 +138,30 @@ def registry() -> Dict[str, Tuple[str, object]]:
     reg.update(collective_rules.RULES)
     reg.update(concurrency_rules.RULES)
     return reg
+
+
+#: Step-program rule families: (CLI flag, analysis module exposing a
+#: ``registry()`` hook). ``--list-rules`` derives its listing from this
+#: table, so a new family appears by registering here once.
+HLO_RULE_FAMILIES: Tuple[Tuple[str, str], ...] = (
+    ("--hlo", "horovod_tpu_torch.analysis.hlo"),
+    ("--shard", "horovod_tpu_torch.analysis.shard"),
+    ("--sched", "horovod_tpu_torch.analysis.schedule"),
+    ("--num", "horovod_tpu_torch.analysis.numerics"),
+)
+
+#: The canonical step programs of --hlo-step.
+HLO_STEPS = ("lm", "resnet_block", "lm_sharded", "lm_runtime")
+
+
+def family_registries() -> Dict[str, Dict[str, Tuple[str, object]]]:
+    """CLI flag -> that family's rule registry, one entry per
+    HLO_RULE_FAMILIES row (imported lazily, like registry())."""
+    import importlib
+    out: Dict[str, Dict[str, Tuple[str, object]]] = {}
+    for flag, modname in HLO_RULE_FAMILIES:
+        out[flag] = importlib.import_module(modname).registry()
+    return out
 
 
 def lint_source(text: str, path: str = "<string>",
@@ -313,26 +340,144 @@ def _record_metrics(findings: Sequence[Finding]) -> None:
         pass
 
 
-#: The JAX package's options for lowered XLA programs, which wait for
-#: their port (ROADMAP A15).
-HLO_OPTIONS = ("--hlo", "--shard", "--sched", "--num", "--hlo-step")
+def _lint_step(args, select, ignore) -> List[Finding]:
+    """Findings of the --hlo-step program `args.hlo_step`: HVD2xx (and
+    HVD5xx with --num) on lm / resnet_block; every family on each rank's
+    program of lm_sharded / lm_runtime, the cross-program rules over the
+    ranks' programs as one set. A recording that fails raises
+    RuntimeError."""
+    from horovod_tpu_torch.analysis import hlo as hlo_mod
+    from horovod_tpu_torch.analysis import numerics as num_mod
+    from horovod_tpu_torch.analysis import schedule as sched_mod
+    from horovod_tpu_torch.analysis import shard as shard_mod
+    findings: List[Finding] = []
+    try:
+        if args.hlo_step in ("lm_sharded", "lm_runtime"):
+            progs = shard_mod.record_sharded_programs(args.hlo_step)
+        else:
+            progs = [hlo_mod.record_step_program(args.hlo_step,
+                                                 args.device)]
+    except ValueError:
+        raise  # a malformed knob: the CLI's tool-error path as it is
+    except Exception as e:
+        raise RuntimeError(f"cannot record step program "
+                           f"{args.hlo_step!r}: {e}") from e
+    for prog in progs:
+        findings.extend(hlo_mod.lint_program(prog, select=select,
+                                             ignore=ignore))
+    if args.hlo_step in ("lm_sharded", "lm_runtime"):
+        for prog in progs:
+            findings.extend(shard_mod.lint_program(prog, select=select,
+                                                   ignore=ignore))
+        findings.extend(sched_mod.lint_programs(progs, select=select,
+                                                ignore=ignore))
+    if args.num or args.hlo_step in ("lm_sharded", "lm_runtime"):
+        findings.extend(num_mod.lint_programs(progs, select=select,
+                                              ignore=ignore))
+    return findings
+
+
+def _family_name(args, select) -> str:
+    """The tool a run reports as: the one family that judged it."""
+    sel_all = (lambda pat: bool(select) and all(
+        re.fullmatch(pat, r.strip().upper()) for r in select))
+    sched_only = ((args.sched or sel_all(r"HVD4\d\d"))
+                  and not (args.hlo or args.shard or args.num))
+    num_only = ((args.num or sel_all(r"HVD5\d\d"))
+                and not (args.hlo or args.shard or args.sched))
+    shard_mode = args.shard or args.hlo_step in ("lm_sharded",
+                                                 "lm_runtime")
+    return ("hvdnum" if num_only
+            else "hvdsched" if sched_only
+            else "hvdshard" if shard_mode else "hvdhlo")
+
+
+def _lint_programs(args, select, ignore) -> List[Finding]:
+    """--hlo / --shard / --sched / --num over the dumps, plus the
+    --hlo-step program."""
+    from horovod_tpu_torch.analysis import hlo as hlo_mod
+    from horovod_tpu_torch.analysis import numerics as num_mod
+    from horovod_tpu_torch.analysis import schedule as sched_mod
+    from horovod_tpu_torch.analysis import shard as shard_mod
+    findings: List[Finding] = []
+    # --hlo runs HVD2xx, --shard HVD3xx, --sched HVD4xx, --num HVD5xx;
+    # the flags compose over the same dumps. A bare --hlo-step adds no
+    # file findings (paths empty).
+    if args.hlo or (args.paths and not args.shard and not args.sched
+                    and not args.num):
+        findings.extend(hlo_mod.lint_files(args.paths, select=select,
+                                           ignore=ignore))
+    if args.shard:
+        findings.extend(shard_mod.lint_files(args.paths, select=select,
+                                             ignore=ignore))
+    if args.sched:
+        findings.extend(sched_mod.lint_files(args.paths, select=select,
+                                             ignore=ignore))
+    if args.num:
+        findings.extend(num_mod.lint_files(args.paths, select=select,
+                                           ignore=ignore))
+    if args.hlo_step is not None:
+        findings.extend(_lint_step(args, select, ignore))
+    findings.sort(key=lambda f: (f.path, f.line, f.rule_id))
+    return findings
+
+
+def _record_family_metrics(findings: Sequence[Finding]) -> None:
+    """Each family owns its counter: HVD3xx -> hvdshard_findings_total,
+    HVD4xx -> hvdsched_, HVD5xx -> hvdnum_, the rest -> hvdhlo_."""
+    from horovod_tpu_torch.analysis import hlo as hlo_mod
+    from horovod_tpu_torch.analysis import numerics as num_mod
+    from horovod_tpu_torch.analysis import schedule as sched_mod
+    from horovod_tpu_torch.analysis import shard as shard_mod
+    by = {"3": [], "4": [], "5": [], "": []}
+    for f in findings:
+        m = re.fullmatch(r"HVD([345])\d\d", f.rule_id)
+        by[m.group(1) if m else ""].append(f)
+    hlo_mod.record_metrics(by[""])
+    shard_mod.record_metrics(by["3"])
+    sched_mod.record_metrics(by["4"])
+    num_mod.record_metrics(by["5"])
 
 
 def run_cli(argv: Optional[Sequence[str]] = None) -> int:
     parser = argparse.ArgumentParser(
         prog="python -m horovod_tpu_torch.analysis",
         description="hvdlint: collective-consistency and concurrency "
-                    "static analysis of Python source")
+                    "static analysis of Python source, plus the "
+                    "analyzers of step programs (lowered text dumps, or "
+                    "the port's recorded canonical steps)")
     parser.add_argument("paths", nargs="*", default=[],
                         help="files or directories to lint")
-    for flag in HLO_OPTIONS[:-1]:
-        parser.add_argument(flag, action="store_true",
-                            help="an analyzer of lowered XLA programs: "
-                                 "not in the port yet (exits 2; ROADMAP "
-                                 "A15)")
+    parser.add_argument("--hlo", action="store_true",
+                        help="hvdhlo mode: treat paths as lowered "
+                             "StableHLO/HLO text dumps and run the "
+                             "HVD2xx performance-contract rules")
+    parser.add_argument("--shard", action="store_true",
+                        help="hvdshard mode: run the HVD3xx sharding/"
+                             "memory rules over the dumps; composes with "
+                             "--hlo")
+    parser.add_argument("--sched", action="store_true",
+                        help="hvdsched mode: reconstruct each device's "
+                             "collective schedule and run the HVD4xx "
+                             "rules; ALL paths are linted as one set so "
+                             "the cross-program rules see every pairing")
+    parser.add_argument("--num", action="store_true",
+                        help="hvdnum mode: the HVD5xx numerics rules; ALL "
+                             "paths are linted as one set (the cross-mesh "
+                             "HVD505 diff); with --hlo-step lm or "
+                             "resnet_block, also over the step")
     parser.add_argument("--hlo-step", default=None, metavar="PROGRAM",
-                        help="lint a lowered step program: not in the "
-                             "port yet (exits 2; ROADMAP A15)")
+                        choices=HLO_STEPS,
+                        help="record the named canonical step under the "
+                             "current fusion/layout config and lint it: "
+                             "lm and resnet_block under HVD2xx, "
+                             "lm_sharded and lm_runtime (the tied LM at "
+                             "dp=2 x tp=2, each rank's program) under "
+                             "every family")
+    parser.add_argument("--device", default=None,
+                        help="where --hlo-step lm / resnet_block runs: "
+                             "cpu, or a card (default: the card when there "
+                             "is one)")
     parser.add_argument("--select", default=None,
                         help="comma-separated rule IDs to run (default all)")
     parser.add_argument("--ignore", default="",
@@ -354,23 +499,20 @@ def run_cli(argv: Optional[Sequence[str]] = None) -> int:
     parser.add_argument("--list-rules", action="store_true")
     args = parser.parse_args(argv)
 
-    hlo = [flag for flag in HLO_OPTIONS
-           if getattr(args, flag[2:].replace("-", "_")) not in (None, False)]
-    if hlo:
-        print(f"hvdlint: {', '.join(hlo)}: the analyzers of lowered "
-              f"programs (hvdhlo, hvdshard, hvdsched, hvdnum) are not in "
-              f"the port yet: they need an analog over torch graphs, "
-              f"ROADMAP A15", file=sys.stderr)
-        return 2
     if args.list_rules:
         from horovod_tpu_torch.analysis import env_rule as env_mod
         reg = dict(registry())
         reg[env_mod.RULE_ID] = (env_mod.DESCRIPTION, None)
         reg[HVD000] = ("suppression comment lacks a rationale", None)
+        for flag, family in family_registries().items():
+            for rule_id, (desc, _check) in family.items():
+                reg[rule_id] = (f"[{flag}] {desc}", None)
         for rule_id in sorted(reg):
             print(f"{rule_id}  {reg[rule_id][0]}")
         return 0
-    if not args.paths:
+    hlo_mode = (args.hlo or args.shard or args.sched or args.num
+                or args.hlo_step is not None)
+    if not args.paths and not args.hlo_step:
         parser.error("no paths given (try: horovod_tpu_torch/)")
 
     root = args.root
@@ -381,19 +523,33 @@ def run_cli(argv: Optional[Sequence[str]] = None) -> int:
     select = ([s.strip() for s in args.select.split(",") if s.strip()]
               if args.select else None)
     ignore = [s.strip() for s in args.ignore.split(",") if s.strip()]
-    findings = lint_paths(args.paths, select=select, ignore=ignore,
-                          root=root, env_rule=not args.no_env)
+    name = _family_name(args, select) if hlo_mode else "hvdlint"
+    if hlo_mode:
+        try:
+            findings = _lint_programs(args, select, ignore)
+        except (ValueError, RuntimeError) as e:
+            # A malformed knob raises by design, and a step that cannot
+            # be recorded is no clean lint: both are tool errors (one
+            # line, exit 2), never findings.
+            print(f"{name}: {e}", file=sys.stderr)
+            return 2
+    else:
+        findings = lint_paths(args.paths, select=select, ignore=ignore,
+                              root=root, env_rule=not args.no_env)
     matched = 0
     if args.baseline is not None:
         try:
             baseline = load_baseline(args.baseline)
         except (OSError, ValueError) as e:
             # A broken baseline must fail the gate, not pass everything.
-            print(f"hvdlint: unreadable baseline {args.baseline}: {e}",
+            print(f"{name}: unreadable baseline {args.baseline}: {e}",
                   file=sys.stderr)
             return 2
         findings, matched = apply_baseline(findings, baseline)
-    _record_metrics(findings)
+    if hlo_mode:
+        _record_family_metrics(findings)
+    else:
+        _record_metrics(findings)
     if args.fmt == "json":
         sys.stdout.write(render_json(findings))
     else:
@@ -401,12 +557,12 @@ def run_cli(argv: Optional[Sequence[str]] = None) -> int:
             print(f.render())
     if findings:
         tag = " new" if args.baseline is not None else ""
-        print(f"hvdlint: {len(findings)}{tag} finding(s)"
+        print(f"{name}: {len(findings)}{tag} finding(s)"
               + (f" ({matched} baselined)" if matched else ""),
               file=sys.stderr)
         return 1
     if args.fmt != "json":
-        print("hvdlint: clean"
+        print(f"{name}: clean"
               + (f" ({matched} baselined)" if matched else ""))
     return 0
 

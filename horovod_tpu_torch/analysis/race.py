@@ -81,6 +81,8 @@ DEFAULT_MODULES: Tuple[str, ...] = (
     "horovod_tpu_torch.serve.pool",
     "horovod_tpu_torch.serve.engine",
     "horovod_tpu_torch.ckpt.async_ckpt",
+    "horovod_tpu_torch.analysis.schedule",
+    "horovod_tpu_torch.analysis.numerics",
 )
 
 _LOCK_TYPES = (type(threading.Lock()), type(threading.RLock()))

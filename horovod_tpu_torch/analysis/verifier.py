@@ -366,7 +366,9 @@ class FingerprintVerifier:
             f"{ours[:16]} (rank {self.rank}) != {theirs[:16]} "
             f"(rank {peer}); last agreed checkpoint call "
             f"#{gs.last_agreed}{detail}. Every rank must issue the "
-            f"same collectives in the same order")
+            f"same collectives in the same order (run "
+            f"'python -m horovod_tpu_torch.analysis' on the training "
+            f"script to find the rank-dependent call)")
         self.divergence = msg
         # Divergence is a flight-dump trigger: every rank's ring holds
         # the exact call sequence that disagreed, and the doctor can

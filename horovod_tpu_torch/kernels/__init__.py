@@ -21,6 +21,7 @@ current would otherwise be read through the wrong one.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -152,6 +153,27 @@ def launch(fn, what: str, device, *args) -> None:
     with torch.cuda.device(device):
         err = fn(*args)
     check(err, what)
+
+
+#: Set while a step is being recorded (analysis/graph.py): a call of a
+#: `kernel_op` wrapper goes to ``op_hook(name, fn, args, kwargs)``.
+#: None otherwise, and then testing it is all a wrapper pays.
+op_hook = None
+
+
+def kernel_op(name: str):
+    """Decorator of a kernel wrapper: with `op_hook` set, the call goes
+    through it, so a recording sees one op named `name` for the launch
+    (a ctypes call is invisible to torch's dispatcher)."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            hook = op_hook
+            if hook is None:
+                return fn(*args, **kwargs)
+            return hook(name, fn, args, kwargs)
+        return call
+    return wrap
 
 
 P = ctypes.c_void_p

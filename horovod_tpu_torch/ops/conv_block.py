@@ -111,6 +111,7 @@ def fwd_tile(m: int, cin: int, c: int) -> int:
     return bn
 
 
+@kernels.kernel_op("conv1x1_fwd_fused")
 def conv1x1_fwd_fused(x: torch.Tensor, w: torch.Tensor
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """y = x @ w plus the per-channel (sum, sumsq) f32 rows of the stored
@@ -160,6 +161,7 @@ conv1x1_fwd_fused.launches = 0
 # kernel 2
 # --------------------------------------------------------------------------
 
+@kernels.kernel_op("conv1x1_bn_act_bwd_fused")
 def conv1x1_bn_act_bwd_fused(dz, y, x_in, w, scale, bias, mean, inv, dbeta,
                              dgamma, dmean=None, dvar=None, count=None,
                              relu: bool = True):

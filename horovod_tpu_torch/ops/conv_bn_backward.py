@@ -275,6 +275,7 @@ def launch_bwd(lib_name: str, fn_name: str, dz, y, x_in, w,
 # kernel 3
 # --------------------------------------------------------------------------
 
+@kernels.kernel_op("conv1x1_bn_bwd_fused")
 def conv1x1_bn_bwd_fused(dz: torch.Tensor, y: torch.Tensor,
                          x_in: torch.Tensor, w: torch.Tensor,
                          scale: torch.Tensor, mean: torch.Tensor,

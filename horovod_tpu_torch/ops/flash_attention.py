@@ -194,6 +194,7 @@ def _stream(t):
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
 
 
+@kernels.kernel_op("flash_fwd")
 def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               causal: bool, scale: float):
     """Kernel 4. q (BH, Sq, dh), k, v (BH, Sk, dh). Returns (o (BH, Sq,
@@ -214,6 +215,7 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 flash_fwd.launches = 0
 
 
+@kernels.kernel_op("flash_bwd_dkdv")
 def flash_bwd_dkdv(q, k, v, o, do, lse, dlse, causal: bool, scale: float):
     """Kernel 5 and its delta pre-pass. dlse None takes the variant
     without an lse cotangent. Returns (dk, dv, delta (BH, Sq) f32)."""
@@ -236,6 +238,7 @@ def flash_bwd_dkdv(q, k, v, o, do, lse, dlse, causal: bool, scale: float):
 flash_bwd_dkdv.launches = 0
 
 
+@kernels.kernel_op("flash_bwd_dq")
 def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool, scale: float):
     """Kernel 6: dq (BH, Sq, dh) from the delta of kernel 5."""
     if q.device.type == "cpu":

@@ -26,6 +26,12 @@ Observability hooks:
 * flight: each capture is a `serve` event and one count of
   ``horovod_serve_compiles_total`` (a capture on the hot path after
   warmup is a bug worth seeing in a postmortem).
+* hvdhlo: each bucket's warm-up call runs under the step recorder
+  (analysis/graph.py; the warm-up, never the capture), and
+  `hlo_lint()` merges the HVD2xx stamps of the buckets' programs, as
+  the JAX engine lints each bucket it compiles (HOROVOD_HLO_LINT=0
+  turns it off). A lint that fails never takes the replica down: the
+  bucket's stamp holds ``error``.
 
 Loading weights: `InferenceEngine.from_checkpoint` restores the params
 subtree of a training checkpoint into the model without building an
@@ -113,6 +119,8 @@ class InferenceEngine:
         # every request of that shape.
         self._lock = threading.Lock()
         self.compiles = 0  # graphs captured (none on the CPU)
+        # bucket key -> (hvdhlo stamp, recorded warm-up program or None)
+        self._lint: Dict[Tuple, Tuple] = {}  # guarded-by: _lock
 
     # ---------------------------------------------------------- weights
     @classmethod
@@ -160,11 +168,13 @@ class InferenceEngine:
             if got is None:
                 if self._pool is None:
                     self._pool = torch.cuda.graph_pool_handle()
-                got = self._capture(key, self._pool)
+                got, self._lint[key] = self._capture(key, self._pool)
                 self._graphs[key] = got
         return got
 
-    def _capture(self, key: Tuple, pool) -> _Captured:
+    def _capture(self, key: Tuple, pool
+                 ) -> Tuple[_Captured, Tuple[Dict[str, Any], Any]]:
+        """The bucket's graph, and the lint of its recorded warm-up."""
         from horovod_tpu_torch.observability import flight
         from horovod_tpu_torch.profiler import perfscope
         from horovod_tpu_torch.serve import telemetry
@@ -182,7 +192,8 @@ class InferenceEngine:
                 side = torch.cuda.Stream(self.device)
                 side.wait_stream(torch.cuda.current_stream(self.device))
                 with torch.cuda.stream(side):
-                    self.infer_fn(self.model, static_in)
+                    lint = self._warm(key, lambda: self.infer_fn(
+                        self.model, static_in))
                 torch.cuda.current_stream(self.device).wait_stream(side)
                 torch.cuda.synchronize(self.device)
                 graph = torch.cuda.CUDAGraph()
@@ -201,7 +212,7 @@ class InferenceEngine:
         flight.record(
             "serve", f"capture engine={self.name} shape={tuple(shape)} "
                      f"dtype={dtype} seconds={dt:.3f}")
-        return _Captured(graph, static_in, static_out, dt)
+        return _Captured(graph, static_in, static_out, dt), lint
 
     def warmup(self, item_shape: Tuple[int, ...], dtype: Any,
                buckets) -> None:
@@ -213,20 +224,76 @@ class InferenceEngine:
             if self.device.type == "cuda":
                 self.compile_for(shape, dtype)
             else:
-                self.infer(np.zeros(shape, np.dtype(dtype)))
+                key = self._key(shape, dtype)
+                batch = np.zeros(shape, np.dtype(dtype))
+                lint = self._warm(key, lambda: self.infer(batch))
+                with self._lock:
+                    self._lint[key] = lint
 
     def capture_seconds(self) -> Dict[int, float]:
         """Seconds each captured bucket took (warm-up call included)."""
         with self._lock:
             return {k[0][0]: g.seconds for k, g in self._graphs.items()}
 
+    def _warm(self, key: Tuple, run: Callable[[], Any]
+              ) -> Tuple[Dict[str, Any], Any]:
+        """Run a bucket's warm-up call recorded for hvdhlo: (its stamp,
+        its program or None)."""
+        from horovod_tpu_torch.analysis import graph, hlo
+        if not hlo.lint_enabled():
+            run()
+            return {"skipped": True}, None
+        try:
+            _, prog = graph.record(run,
+                                   path=f"<serve:{self.name}:{key[0][0]}>")
+        except Exception as e:
+            run()  # the warm-up itself must still happen
+            return {"error": f"{type(e).__name__}: {e}"}, None
+        try:
+            summary = hlo.lint_summary(prog)
+            if not summary.get("clean", True):
+                from horovod_tpu_torch.observability import flight
+                flight.record(
+                    "serve", f"hlo_lint engine={self.name} "
+                             f"shape={key[0]} findings={summary['count']}")
+        except Exception as e:
+            summary = {"error": f"{type(e).__name__}: {e}"}
+        return summary, prog
+
+    def lint_programs(self) -> Dict[int, Any]:
+        """Bucket -> its recorded warm-up program (analysis/hlo.py)."""
+        with self._lock:
+            return {k[0][0]: p for k, (_, p) in self._lint.items()
+                    if p is not None}
+
     def hlo_lint(self) -> Dict[str, Any]:
-        """The JAX engine lints each bucket's lowered XLA program; a
-        captured torch graph has no such program, and the port's graph
-        analyzers are not written yet."""
-        raise HorovodError(
-            "InferenceEngine.hlo_lint lints lowered XLA programs; the "
-            "port's analyzers of torch graphs are ROADMAP A15")
+        """Merged hvdhlo stamp over every warmed bucket (the JAX engine's
+        keys: count, clean, programs, rules, findings, and truncated
+        when findings were cut; error when a bucket's lint failed)."""
+        from horovod_tpu_torch.analysis.hlo import _SUMMARY_MAX_FINDINGS
+        total = 0
+        rules: Dict[str, int] = {}
+        findings = []
+        errors = []
+        with self._lock:
+            stamps = [(k, st) for k, (st, _) in self._lint.items()]
+        for key, st in stamps:
+            total += int(st.get("count", 0) or 0)
+            for r, n in (st.get("rules") or {}).items():
+                rules[r] = rules.get(r, 0) + n
+            findings.extend(st.get("findings") or [])
+            if "error" in st:
+                errors.append(f"bucket {key[0][0]}: {st['error']}")
+        out: Dict[str, Any] = {"count": total, "clean": total == 0,
+                               "programs": len(stamps)}
+        if rules:
+            out["rules"] = rules
+            out["findings"] = findings[:_SUMMARY_MAX_FINDINGS]
+            if total > len(out["findings"]):
+                out["truncated"] = total - len(out["findings"])
+        if errors:
+            out["error"] = "; ".join(errors)
+        return out
 
     # -------------------------------------------------------------- run
     def infer(self, batch) -> np.ndarray:

@@ -247,10 +247,11 @@ def test_skipped_call_raises_the_same_divergence_as_jax():
                     v1.record(f"allreduce|name=t{i}")
         msgs[name] = (type(ei.value).__name__, str(ei.value))
     assert msgs["port"][0] == "CollectiveDivergenceError"
-    # the same diagnosis; the JAX text goes on to name its static
-    # analyzer, which the port does not have yet (ROADMAP A15)
+    # the same diagnosis, naming each package's static analyzer
     assert msgs["port"][0] == msgs["jax"][0]
-    assert msgs["jax"][1].startswith(msgs["port"][1])
+    assert msgs["port"][1] == msgs["jax"][1].replace(
+        "python -m horovod_tpu.analysis",
+        "python -m horovod_tpu_torch.analysis")
     assert "first divergent call #2" in msgs["port"][1]
 
 

@@ -198,7 +198,11 @@ class Launch:
     def __init__(self, tmp_path, env, timeout=90):
         self.go = tmp_path / "go"
         self.port_file = tmp_path / "rdv.port"
+        # The workers stop by the go file, or a few seconds before this
+        # deadline: one clock for the test and its job, where each rank
+        # used to give itself 60 s from its own start.
         env = {**os.environ, **env, "CONTROL_TEST_GO": str(self.go),
+               "CONTROL_TEST_DEADLINE": str(time.time() + timeout - 10),
                "HOROVOD_RENDEZVOUS_PORT_FILE": str(self.port_file),
                "HOROVOD_METRICS_PUSH_INTERVAL": "0.2"}
         cmd = [sys.executable, "-m", "horovod_tpu_torch.runner.launch",
@@ -241,6 +245,15 @@ class Launch:
         return seen, out + err
 
 
+def wait_for(job, ready, what):
+    """Poll `ready()` until it holds; a wait that reaches the job's
+    deadline fails the test naming what it waited for."""
+    while not ready():
+        if time.monotonic() >= job.end:
+            pytest.fail(f"timed out waiting for {what}")
+        time.sleep(0.2)
+
+
 @pytest.fixture()
 def launches():
     started = []
@@ -268,20 +281,23 @@ def test_launched_job_scrape_and_replicated_control_plane(tmp_path,
                               "count=1"})
     eps = job.endpoints()
     assert len(eps) == 3
-    while time.monotonic() < job.end and \
-            job.port_file.read_text().split(",")[0] == eps[0]:
-        time.sleep(0.2)
+    wait_for(job, lambda: job.port_file.read_text().split(",")[0] != eps[0],
+             "the failover to a new primary")
     primary = job.port_file.read_text().split(",")[0]
     info = json.loads(urllib.request.urlopen(
         f"http://{primary}/leader", timeout=5).read())
     assert info["role"] == "primary" and info["epoch"] == 2, info
-    text = ""
-    while time.monotonic() < job.end:
-        text = urllib.request.urlopen(f"http://{primary}/metrics",
-                                      timeout=5).read().decode()
-        if all(f'dtype="float32",rank="{r}"}}' in text for r in (0, 1)):
-            break
-        time.sleep(0.2)
+    scraped = {}
+
+    def both_ranks_scraped():
+        scraped["text"] = urllib.request.urlopen(
+            f"http://{primary}/metrics", timeout=5).read().decode()
+        return all(f'dtype="float32",rank="{r}"}}' in scraped["text"]
+                   for r in (0, 1))
+
+    wait_for(job, both_ranks_scraped,
+             "both ranks' counters on the new primary's /metrics")
+    text = scraped["text"]
     for r in (0, 1):
         assert ('horovod_collective_calls_total{op="allreduce",'
                 f'dtype="float32",rank="{r}"}}') in text, text[-2000:]
@@ -298,9 +314,8 @@ def test_launched_job_scrape_and_replicated_control_plane(tmp_path,
         return s
 
     after = {r: steps_of(r) for r in (0, 1)}
-    while time.monotonic() < job.end and \
-            any(steps_of(r) < after[r] + 5 for r in (0, 1)):
-        time.sleep(0.2)
+    wait_for(job, lambda: all(steps_of(r) >= after[r] + 5 for r in (0, 1)),
+             "5 more steps of each rank after the failover")
     seen, _ = job.finish()
     for r, body in seen.items():
         assert body["steps"] >= after[r] + 5 and body["lost"] == [], body

@@ -440,3 +440,47 @@ def test_kernels_launch_on_their_tensors_card(dev):
                  2.0 ** -7)
     torch.cuda.synchronize(d1)
     assert torch.cuda.current_device() == 0
+
+
+KERNEL_WRAPPERS = ["conv1x1_fwd_fused", "conv1x1_bn_act_bwd_fused",
+                   "conv1x1_bn_bwd_fused", "flash_fwd", "flash_bwd_dkdv",
+                   "flash_bwd_dq"]
+
+
+@pytest.mark.parametrize("kname", KERNEL_WRAPPERS)
+def test_a_recorded_wrapper_call_is_one_kernel_op(dev, kname):
+    """Under the step recorder (analysis/graph.py) one wrapper call on
+    the card is one custom_call op named after its kernel, with an f32
+    accumulator; with no recorder the wrapper reports nothing."""
+    from horovod_tpu_torch import kernels
+    from horovod_tpu_torch.analysis import graph
+    m, cin, c = 512, 64, 128
+    x, w, scale, bias, dz = _inputs(m, cin, c, dev)
+    y, s1, s2 = cb.conv1x1_fwd_fused(x, w)
+    mean = s1 / m
+    inv = torch.rsqrt(s2 / m - mean.square() + 1e-5)
+    db, dg = cb._bn_act_sums(dz, y, mean, inv, scale, bias, True)
+    q, k, v, do, _ = _dq_inputs(4, 256, 256, 64, False, dev, 3)
+    sc = 64 ** -0.5
+    o, lse = fa.flash_fwd(q, k, v, True, sc)
+    _, _, delta = fa.flash_bwd_dkdv(q, k, v, o, do, lse, None, True, sc)
+    calls = {
+        "conv1x1_fwd_fused": lambda: cb.conv1x1_fwd_fused(x, w),
+        "conv1x1_bn_act_bwd_fused": lambda: cb.conv1x1_bn_act_bwd_fused(
+            dz, y, x, w, scale, bias, mean, inv, db, dg),
+        "conv1x1_bn_bwd_fused": lambda: cbb.conv1x1_bn_bwd_fused(
+            dz, y, x, w, scale.float(), mean, inv, db, dg),
+        "flash_fwd": lambda: fa.flash_fwd(q, k, v, True, sc),
+        "flash_bwd_dkdv": lambda: fa.flash_bwd_dkdv(q, k, v, o, do, lse,
+                                                    None, True, sc),
+        "flash_bwd_dq": lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta,
+                                                True, sc),
+    }
+    _, prog = graph.record(calls[kname])
+    ops = [op for op in prog.ops if op.opcode == "custom_call"]
+    assert len(ops) == 1
+    assert f'custom_call_target="{kname}"' in ops[0].attrs
+    assert "accumulation_type=f32" in ops[0].attrs and ops[0].operands
+    assert kernels.op_hook is None
+    calls[kname]()  # and with none active, nothing to report to
+    torch.cuda.synchronize(dev)

@@ -13,6 +13,7 @@ and the port linting clean under both packages' lints.
 """
 
 import json
+import os
 import pathlib
 import subprocess
 import sys
@@ -24,6 +25,8 @@ from horovod_tpu.analysis import driver as jdriver
 from horovod_tpu_torch.analysis import driver as tdriver
 from horovod_tpu_torch.analysis import env_rule as tenv
 from horovod_tpu_torch.analysis.driver import lint_paths, run_cli
+
+run_jax_cli = jdriver.run_cli
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PORT = REPO / "horovod_tpu_torch"
@@ -712,18 +715,70 @@ def test_driver_clean_exit_and_list_rules(tmp_path, capsys):
     for rule in ("HVD000", "HVD001", "HVD002", "HVD003", "HVD004",
                  "HVD005", "HVD101", "HVD102", "HVD103", "HVD-ENV"):
         assert rule in out
-    assert "HVD2" not in out  # no analyzer of lowered programs yet
+    # the analyzers of step programs, every family, as the JAX CLI
+    listed = {ln.split()[0] for ln in out.splitlines() if ln.strip()}
+    for fam in (2, 3, 4, 5):
+        for i in range(1, 6):
+            assert f"HVD{fam}0{i}" in listed
+    assert run_jax_cli(["--list-rules"]) == 0
+    jax_listed = {ln.split()[0] for ln in capsys.readouterr().out.splitlines()
+                  if ln.strip()}
+    assert {r for r in listed if r.startswith(("HVD2", "HVD3", "HVD4",
+                                               "HVD5"))} == \
+        {r for r in jax_listed if r.startswith(("HVD2", "HVD3", "HVD4",
+                                                "HVD5"))}
 
 
-@pytest.mark.parametrize("opts", [["--hlo"], ["--shard"], ["--sched"],
-                                  ["--num"], ["--hlo-step", "lm"],
-                                  ["--hlo", "--num"]])
-def test_lowered_program_options_exit_2_naming_a15(tmp_path, capsys, opts):
-    ok = tmp_path / "ok.py"
-    ok.write_text("x = 1\n")
-    assert run_cli([str(ok), *opts]) == 2
-    err = capsys.readouterr().err
-    assert "ROADMAP A15" in err and opts[0] in err
+FIXDIR = os.path.join(os.path.dirname(__file__), "fixtures", "hlo")
+
+
+def _fixture(name):
+    return os.path.join(FIXDIR, name)
+
+
+#: The JAX CLI's options over the dumps (and one recorded step), at the
+#: JAX lane and budget; each case's exit code and findings must match.
+PROGRAM_OPTIONS = [
+    ["--hlo", _fixture("hvd201_giant_allreduce.mlir"),
+     _fixture("hvd204_resnet_block.mlir"), _fixture("hvd203_donated.mlir")],
+    ["--shard", _fixture("hvd301_replicated_emb.mlir"),
+     _fixture("hvd303_overbudget.hlo"), _fixture("hvd305_psum_scatter.mlir")],
+    ["--sched", _fixture("hvd401_pair_a.hlo"), _fixture("hvd401_pair_b.hlo"),
+     "--format", "json"],
+    ["--num", _fixture("hvd505_mesh4_sum.hlo"),
+     _fixture("hvd505_mesh8_sum.hlo"), _fixture("hvd501_f32_accum.mlir")],
+    ["--hlo-step", "lm"],
+    ["--hlo", "--num", _fixture("hvd502_downcast_then_reduce.mlir"),
+     _fixture("hvd205_upcast_accum.mlir")],
+]
+
+
+@pytest.mark.parametrize("opts", PROGRAM_OPTIONS,
+                         ids=["hlo", "shard", "sched", "num", "hlo-step",
+                              "hlo+num"])
+def test_lowered_program_options_match_the_jax_cli(monkeypatch, capsys,
+                                                   opts):
+    from horovod_tpu_torch.analysis import hlo_rules
+    monkeypatch.setattr(hlo_rules, "LANE", 128)
+    monkeypatch.setenv("HOROVOD_HLO_LINT_HBM_BUDGET", "56M")
+    results = {}
+    extra = ["--device", "cpu"] if "--hlo-step" in opts else []
+    for side, cli in (("jax", run_jax_cli), ("port", run_cli)):
+        rc = cli(opts + (extra if side == "port" else []))
+        cap = capsys.readouterr()
+        if "--format" in opts:
+            found = {(f["rule"], f["line"], os.path.basename(f["path"]))
+                     for f in json.loads(cap.out)["findings"]}
+        else:
+            found = {(ln.split(" ")[1], ln.split(" ")[0].rsplit(":", 1)[1],
+                      os.path.basename(ln.split(" ")[0].rsplit(":", 1)[0]))
+                     for ln in cap.out.splitlines() if " HVD" in ln}
+        tail = (cap.err.strip().splitlines() or cap.out.strip().splitlines()
+                or [""])[-1]
+        results[side] = (rc, found, tail.split(":")[0])
+    assert results["port"] == results["jax"]
+    if opts[0] != "--hlo-step":
+        assert results["port"][0] == 1  # each set really fires
 
 
 def test_select_and_ignore_cover_hvd000(tmp_path):

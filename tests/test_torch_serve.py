@@ -420,9 +420,77 @@ def test_engine_on_cpu_runs_eager_and_padding_safe():
     assert eng.compile_for((4, 3), np.float32) is None
 
 
-def test_engine_hlo_lint_names_roadmap_a15():
-    with pytest.raises(HorovodError, match="ROADMAP A15"):
-        _mlp_engine().hlo_lint()
+def _lm_infer_jax(p, tok):
+    h = p["emb"][tok]
+    h = h + jnp.tanh(h @ p["wi"]) @ p["wo"]
+    return h @ p["emb"].T
+
+
+def _lm_infer_torch(m, tok):
+    h = m.emb[tok]
+    h = h + torch.tanh(h @ m.wi) @ m.wo
+    return h @ m.emb.T
+
+
+def _small_lm():
+    rng = np.random.default_rng(0)
+    V, D, F = 256, 64, 128
+    arrs = {"emb": rng.standard_normal((V, D)).astype(np.float32) * 0.02,
+            "wi": rng.standard_normal((D, F)).astype(np.float32) * 0.02,
+            "wo": rng.standard_normal((F, D)).astype(np.float32) * 0.02}
+    model = torch.nn.Module()
+    for k, v in arrs.items():
+        model.register_parameter(k, torch.nn.Parameter(torch.from_numpy(v)))
+    return arrs, model
+
+
+@pytest.mark.parametrize("lane", [True, False], ids=["jax-lane", "h100-lane"])
+def test_engine_hlo_lint_stamps_each_bucket_as_the_jax_engine(
+        monkeypatch, lane):
+    """Each warmed bucket's program is recorded and linted; on a small LM
+    the stamp's rule sets equal the JAX engine's (at the JAX lane, 128,
+    the D = 64 contractions pad; at the port's, 64, nothing does)."""
+    from horovod_tpu.serve.engine import InferenceEngine as JaxEngine
+    if lane:
+        from horovod_tpu_torch.analysis import hlo_rules
+        monkeypatch.setattr(hlo_rules, "LANE", 128)
+    arrs, model = _small_lm()
+    buckets = (1, 2, 4)
+    jeng = JaxEngine(_lm_infer_jax, {k: jnp.asarray(v)
+                                     for k, v in arrs.items()})
+    jeng.warmup((16,), np.int32, buckets)
+    teng = InferenceEngine(_lm_infer_torch, model, device="cpu")
+    teng.warmup((16,), np.int64, buckets)
+    js, ts = jeng.hlo_lint(), teng.hlo_lint()
+    assert ts["programs"] == js["programs"] == len(buckets)
+    assert "error" not in ts
+    if lane:
+        assert js.get("rules") and set(ts["rules"]) == set(js["rules"])
+    else:
+        assert "rules" not in ts
+    assert ts["clean"] == (not ts.get("rules"))
+    assert sorted(teng.lint_programs()) == list(buckets)
+    out = teng.infer(np.zeros((2, 16), np.int64))
+    assert out.shape == (2, 16, 256)
+
+
+def test_engine_hlo_lint_failure_never_takes_the_replica_down(monkeypatch):
+    from horovod_tpu_torch.analysis import graph
+
+    def broken(*a, **k):
+        raise RuntimeError("recorder down")
+
+    monkeypatch.setattr(graph, "record", broken)
+    eng = _mlp_engine()
+    eng.warmup((3,), np.float32, (1, 2))
+    stamp = eng.hlo_lint()
+    assert stamp["programs"] == 2 and "recorder down" in stamp["error"]
+    assert eng.infer(np.ones((2, 3), np.float32)).shape == (2,)
+    monkeypatch.undo()
+    monkeypatch.setenv("HOROVOD_HLO_LINT", "0")
+    eng = _mlp_engine()
+    eng.warmup((3,), np.float32, (1,))
+    assert eng.hlo_lint() == {"count": 0, "clean": True, "programs": 1}
 
 
 def test_engine_default_device_is_the_local_rank_card(monkeypatch):

@@ -7,8 +7,9 @@ needs before hvd.init() reads it, and write what they saw as JSON to
 does not wait in its teardown. `main` is the launched worker of the
 metrics scrape and the replicated control plane: it trains a small MLP
 on gloo, writes a key to the rendezvous KV each step, and waits for the
-test's go-ahead file before it reads its keys back and shuts down; the
-ranks agree on the step at which they stop.
+test's go-ahead file (or the test's deadline, CONTROL_TEST_DEADLINE)
+before it reads its keys back and shuts down; the ranks agree on the
+step at which they stop.
 """
 
 import json
@@ -127,14 +128,16 @@ def main() -> None:
         opt = hvd.DistributedOptimizer(torch.optim.SGD(model.parameters(),
                                                        lr=0.1))
         step, seen = 0, 0
-        deadline = time.monotonic() + 60
+        # the test's deadline (wall clock), else 60 s from here
+        deadline = float(os.environ.get("CONTROL_TEST_DEADLINE",
+                                        time.time() + 60))
         # A rank past CONTROL_TEST_GO_LAG sees the go file that many checks
         # late (rank 0 at once), as a loaded host's ranks see it apart.
         lag = int(os.environ.get("CONTROL_TEST_GO_LAG", "0")) \
             if hvd.rank() else 0
         while True:
             seen = seen + 1 if os.path.exists(go) else 0
-            stop = seen > lag or time.monotonic() > deadline
+            stop = seen > lag or time.time() > deadline
             # The ranks stop at the same step: each sees the file, and its
             # own deadline, at its own time, and a rank that stopped alone
             # would leave the other in the next step's all-reduce.
