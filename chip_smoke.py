@@ -8,21 +8,27 @@ Phases, each fatal on failure:
      horovod_tpu_torch/csrc/, one process per source, in parallel; what
      ptxas says of registers and spills, and the HGMMA (wgmma) and
      UTMALDG (TMA) instructions in each library's SASS, which all six
-     must have (each has a Hopper instance);
+     must have (each has a Hopper instance); the same per kernel for the
+     18 kernels of the f32 (tf32) instance of kernels 2 and 3, which must
+     spill nothing and hold both, and the clusters of its dW blocks the
+     card holds at once, which every ResNet-50 site's plan must fit in
+     one wave;
   2. conv kernel checks — kernels 1–3 against their plain PyTorch
      versions on the card, in bf16 and in f32, at ResNet-50 site shapes
      (batch 32) plus ragged M (on the Hopper instances, and on the
      simple ones) and a C that is no multiple of 16, each line naming
-     the instance that ran (`hopper` or `simple`); kernel 2's ReLU mask
+     the instance that ran (`hopper`, `hopper_tf32` or `simple`);
+     kernel 2's ReLU mask
      against the forward's z > 0 on an input built to sit on the
      boundary, with bf16 and with f32 y; two launches of each Hopper
      instance of kernels 1–3 at (6272, 1024, 512) giving bitwise-equal
-     y, Σy, Σy², dx and dW, and two of kernel 6's at the LM's shape
-     giving the same dq; then each kernel, its plain version and a
-     PyTorch yardstick timed at every fused site shape of a ResNet-50
-     step, in both types, beside the card's bound (device time from the
-     profiler's trace, `device_ms`; the wall time of back-to-back calls
-     beside it);
+     y, Σy, Σy², dx and dW (kernels 2 and 3 in f32 too), and two of
+     kernel 6's at the LM's shape giving the same dq; then each kernel,
+     its plain version and a PyTorch yardstick timed at every fused site
+     shape of a ResNet-50 step, in both types (in f32 the yardstick both
+     in full f32 and as tf32 cuBLAS), beside the card's bound (device
+     time from the profiler's trace, `device_ms`; the wall time of
+     back-to-back calls beside it);
   3. flash kernel checks — kernels 4–6 against their plain versions at
      the LM's shape (B·H 192, S 1024, dh 128, causal, bf16), non-causal,
      a ragged S, dh 64, a non-causal chunk (Sq 512, Sk 1024) with an lse
@@ -33,7 +39,9 @@ Phases, each fatal on failure:
      at the LM's shape beside its bound, its plain version and
      scaled_dot_product_attention (kernel 6 has no PyTorch call of its
      own: kernels 5 + 6 are timed as a pair against SDPA's backward),
-     and once more at dh 512 (B·H 16, S 1024: the wide path);
+     and at the shapes that still run the simple code (FLASH_SIMPLE:
+     f32 at the ring's chunk and at the LM's S, bf16 at dh 256 and at
+     dh 512, the wide path), each with the backend SDPA picked;
   4. ResNet main path — hvd.init(), ResNet-50 at full width (224², bf16,
      batch 32) with HOROVOD_CONV_BLOCK=1 (every site on the Hopper
      instances of kernels 1 and 2), broadcast_parameters,
@@ -41,14 +49,19 @@ Phases, each fatal on failure:
      all-reduce: 2 warm-up and 5 timed steps, the launch counters read
      around them; then one step from the same weights on the unfused
      route, whose loss must match; kernel 3 on its path, 7 steps with
-     HOROVOD_FUSE_CONV_BN=1; one f32 step on the block route against one
-     f32 unfused step from the same weights;
+     HOROVOD_FUSE_CONV_BN=1; f32 steps from the same weights on the
+     block route (28 + 28 launches of kernels 1 and 2), the fuse_bn route
+     (28 of kernel 3 alone) and the unfused route, whose first losses and
+     losses after one step must agree, and each route's ms/step;
   5. LM main path — the transformer LM at the bench's flagship width
      (L12 D2048 F8192 H16 S1024 B12 V32768, bf16, Adam) through
      horovod_tpu_torch.transformer_lm with attn="flash": 2 warm-up and
      5 timed steps, 12 launches of each flash kernel per step, all on
      the Hopper instances (bf16, dh 128); then one
      step from the same weights with attn="local", whose loss must match;
+     then fault C13's check: 5 backward passes of the LM step from one
+     state (every other token from 64 ids) and of the tied LM's
+     global_loss, whose embedding gradients must be bit-identical;
   6. the launcher — `python -m horovod_tpu_torch.runner.launch
      --check-build` names the card and the six kernels built by phase 1;
      the launcher starts the synthetic benchmark (ResNet-50, 224², bf16,
@@ -324,7 +337,8 @@ Phases, each fatal on failure:
      bucket of the plan whose payloads sum to the gradients' bytes, and
      a loss equal to phase 4's first bit for bit; (b) phase 5's flagship
      LM step (Adam, after one step that makes its state): 12 + 12 + 12
-     kernel ops and launches of kernels 4-6; for each, every family's
+     kernel ops and launches of kernels 4-6; neither with an HVD504
+     finding (phase 5's C13 check); for each, every family's
      findings by rule (hvdhlo, hvdshard, hvdsched, hvdnum), the HVD303
      peak-memory estimate beside torch.cuda.max_memory_allocated of the
      same step and their ratio, and the seconds; (c) phase 14's serving
@@ -342,6 +356,7 @@ import copy
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -655,9 +670,9 @@ def mask_check(dev, dtype, m=25088, c=256):
 
 def repeat_check(dev, shape=REPEAT_SHAPE, flash_shape=(192, 1024, 128)):
     """Two launches of each Hopper instance (kernels 1, 2 and 3 at
-    `shape`, kernel 6 at the LM's per-layer shape; bf16) on the same
-    inputs give bitwise-equal outputs: every sum runs in a fixed
-    order."""
+    `shape` in bf16, kernels 2 and 3 in f32 too, kernel 6 at the LM's
+    per-layer shape in bf16) on the same inputs give bitwise-equal
+    outputs: every sum runs in a fixed order."""
     import torch
     from horovod_tpu_torch.ops import flash_attention as fa
     m, cin, c = shape
@@ -674,6 +689,20 @@ def repeat_check(dev, shape=REPEAT_SHAPE, flash_shape=(192, 1024, 128)):
         print(f"check repeat {name} bf16 M={m} Cin={cin} C={c} [hopper]: "
               f"two launches bitwise equal: {same}")
         need(same, f"{name}: two launches of the Hopper instance differ")
+    del s
+    s = site_inputs(m, cin, c, dev, seed=7, dtype=torch.float32)
+    for name, run in (("act_bwd", run_k2), ("bn_bwd", run_k3)):
+        inst = instance(m, cin, c, torch.float32, name)
+        need(inst == "hopper_tf32",
+             f"{shape} does not take kernel {name}'s f32 Hopper instance")
+        a, b = run(s), run(s)
+        torch.cuda.synchronize()
+        same = all(bool(torch.equal(u, v)) for u, v in zip(a, b))
+        out[name + "_f32"] = same
+        print(f"check repeat {name} f32 M={m} Cin={cin} C={c} [{inst}]: "
+              f"two launches bitwise equal: {same}")
+        need(same, f"{name}: two launches of the f32 Hopper instance "
+             f"differ")
     del s
     bh, sq, dh = flash_shape
     need(fa.flash_instance(torch.bfloat16, dh) == "hopper",
@@ -693,12 +722,26 @@ def repeat_check(dev, shape=REPEAT_SHAPE, flash_shape=(192, 1024, 128)):
     return out
 
 
+def library_tf32_ms(fn) -> float:
+    """device_ms of fn() with cuBLAS allowed tf32 (the conv kernels' f32
+    precision), the script's full-f32 setting restored afterwards."""
+    import torch
+    was = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        return device_ms(fn)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = was
+
+
 def time_kernels(dev, dtype):
     """Per-step times over the 28 fused sites of a ResNet-50 step at batch
     32 in `dtype`: kernel, plain version, PyTorch yardstick (device time,
-    device_ms) and bound, each summed over the sites (site shape × its
-    count); and the wall time of back-to-back wrapper calls (time_ms),
-    which the host's time a call sets once the kernels are faster."""
+    device_ms; in f32 both full-f32 SGEMM and, as library_tf32_ms, cuBLAS
+    at the kernels' tf32 precision) and bound, each summed over the sites
+    (site shape × its count); and the wall time of back-to-back wrapper
+    calls (time_ms), which the host's time a call sets once the kernels
+    are faster."""
     import torch
     from horovod_tpu_torch.models import resnet
     sites = resnet.fused_sites(50, 32, 224)
@@ -708,6 +751,9 @@ def time_kernels(dev, dtype):
     agg = {k: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
                    bytes_ms=0.0, flops_ms=0.0, wall_ms=0.0)
            for k in ("fwd", "act_bwd", "bn_bwd")}
+    if dtype == torch.float32:
+        for a in agg.values():
+            a["library_tf32_ms"] = 0.0
     detail = []
     for i, ((m, cin, c), count) in enumerate(sorted(shapes.items())):
         s = site_inputs(m, cin, c, dev, seed=100 + i, dtype=dtype)
@@ -723,6 +769,8 @@ def time_kernels(dev, dtype):
                  "plain_ms": device_ms(lambda: plain(s), iters=5),
                  "library_ms": device_ms(lambda: lib(s)),
                  "wall_ms": time_ms(lambda: run(s))}
+            if dtype == torch.float32:  # cuBLAS at the kernels' precision
+                t["library_tf32_ms"] = library_tf32_ms(lambda: lib(s))
             b, tb, tf = bound(name, m, cin, c, dtype.itemsize)
             t.update(bound_ms=b, bytes_ms=tb, flops_ms=tf)
             for key, v in t.items():
@@ -735,7 +783,10 @@ def time_kernels(dev, dtype):
                   f"Cin={cin:4d} C={c:4d} x{count} "
                   f"[{instance(m, cin, c, dtype, name)}]: "
                   f"kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f}, "
-                  f"library {t['library_ms']:.4f}, bound {b:.4f} "
+                  f"library {t['library_ms']:.4f}"
+                  + (f" (tf32 {t['library_tf32_ms']:.4f})"
+                     if "library_tf32_ms" in t else "")
+                  + f", bound {b:.4f} "
                   f"({'bytes' if tb >= tf else 'operations'}); "
                   f"wall of back-to-back calls {t['wall_ms']:.4f}")
         del s, dy2
@@ -890,63 +941,123 @@ def flash_bound(kind, bh, sq, sk, dh, causal, e):
     return max(tb, tf), tb, tf
 
 
-def time_flash(dev, bh=192, s=1024, dh=128, heads=16):
+def sdpa_backend(fn) -> str:
+    """The backend scaled_dot_product_attention picked for fn(), read
+    from the names of the kernels one call runs on the card: "flash",
+    "efficient" (memory-efficient, CUTLASS), "cudnn" or "math" (no fused
+    attention kernel)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = " ".join(e.key for e in prof.key_averages()).lower()
+    for key, label in (("cudnn", "cudnn"), ("flash", "flash"),
+                       ("fmha", "efficient"), ("efficient", "efficient")):
+        if key in names:
+            return label
+    return "math"
+
+
+def time_flash(dev, bh=192, s=1024, dh=128, heads=16, sq=None, causal=True,
+               dtype="bfloat16"):
     """Kernels 4–6, their plain versions and
     torch.nn.functional.scaled_dot_product_attention (forward for kernel
     4; its autograd backward, which makes dq, dk and dv in one call, on
-    kernel 5's line) at the LM's per-layer shape, causal, bf16. No
-    PyTorch call computes dq alone, so kernels 5 + 6 are also timed as
-    the pair ("attn_bwd") that SDPA's backward computes."""
+    kernel 5's line; each with the backend it picked) at B·H `bh`, `sq`
+    queries (default `s`) against `s` keys, head dim `dh`, by default the
+    LM's per-layer shape, causal, bf16. No PyTorch call computes dq
+    alone, so kernels 5 + 6 are also timed as the pair ("attn_bwd") that
+    SDPA's backward computes. In f32 SDPA runs as the script sets
+    matmuls (full f32) and once more with tf32 allowed
+    ("library_tf32_ms")."""
     import torch
     import torch.nn.functional as F
     from horovod_tpu_torch.ops import flash_attention as fa
-    x = flash_inputs(bh, s, s, dh, True, "bfloat16", False, dev, 300)
+    sq = sq or s
+    dt = getattr(torch, dtype)
+    x = flash_inputs(bh, sq, s, dh, causal, dtype, False, dev, 300)
     q, k, v, do, sc = x["q"], x["k"], x["v"], x["do"], x["scale"]
-    o, lse = fa.flash_fwd(q, k, v, True, sc)
-    _, _, delta = fa.flash_bwd_dkdv(q, k, v, o, do, lse, None, True, sc)
-    four = [t.reshape(bh // heads, heads, s, dh) for t in (q, k, v, do)]
+    o, lse = fa.flash_fwd(q, k, v, causal, sc)
+    _, _, delta = fa.flash_bwd_dkdv(q, k, v, o, do, lse, None, causal, sc)
+    four = [t.reshape(bh // heads, heads, t.shape[1], dh)
+            for t in (q, k, v, do)]
     leaves = [t.detach().requires_grad_(True) for t in four[:3]]
-    o_lib = F.scaled_dot_product_attention(*leaves, is_causal=True)
+    o_lib = F.scaled_dot_product_attention(*leaves, is_causal=causal)
+    lib_fwd = (lambda: F.scaled_dot_product_attention(*four[:3],
+                                                      is_causal=causal))
+    lib_bwd = (lambda: torch.autograd.grad(o_lib, leaves, four[3],
+                                           retain_graph=True))
     runs = {
-        "attn_fwd": (lambda: fa.flash_fwd(q, k, v, True, sc),
-                     lambda: fa._fwd_plain(q, k, v, True, sc),
-                     lambda: F.scaled_dot_product_attention(
-                         *four[:3], is_causal=True)),
+        "attn_fwd": (lambda: fa.flash_fwd(q, k, v, causal, sc),
+                     lambda: fa._fwd_plain(q, k, v, causal, sc), lib_fwd),
         "attn_dkdv": (lambda: fa.flash_bwd_dkdv(q, k, v, o, do, lse, None,
-                                                True, sc),
+                                                causal, sc),
                       lambda: fa._bwd_dkdv_plain(q, k, v, o, do, lse, None,
-                                                 True, sc),
-                      lambda: torch.autograd.grad(o_lib, leaves, four[3],
-                                                  retain_graph=True)),
-        "attn_dq": (lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta, True,
+                                                 causal, sc), lib_bwd),
+        "attn_dq": (lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta, causal,
                                             sc),
-                    lambda: fa._bwd_dq_plain(q, k, v, do, lse, delta, True,
+                    lambda: fa._bwd_dq_plain(q, k, v, do, lse, delta, causal,
                                              sc),
                     None)}
+    tag = (f"BH={bh} Sq={sq} Sk={s} dh={dh} "
+           f"{'causal' if causal else 'non-causal'} {dtype}")
+    inst = fa.flash_instance(dt, dh)
     out = {}
     for name, (run, plain, lib) in runs.items():
-        b, tb, tf = flash_bound(name, bh, s, s, dh, True, 2)
+        b, tb, tf = flash_bound(name, bh, sq, s, dh, causal, dt.itemsize)
         t = {"ms": device_ms(run), "plain_ms": device_ms(plain, iters=3),
              "library_ms": device_ms(lib) if lib else None,
-             "bound_ms": b, "bytes_ms": tb, "flops_ms": tf}
+             "bound_ms": b, "bytes_ms": tb, "flops_ms": tf,
+             "instance": inst}
+        if lib is not None:
+            t["library_backend"] = sdpa_backend(lib)
+            if dt == torch.float32:
+                t["library_tf32_ms"] = library_tf32_ms(lib)
         out[name] = t
         lib_s = ("n/a (in kernel 5's line)" if lib is None
-                 else f"{t['library_ms']:.4f}")
-        print(f"time {name:9s} BH={bh} S={s} dh={dh} causal bf16 "
-              f"[{fa.flash_instance(torch.bfloat16, dh)}]: kernel "
+                 else f"{t['library_ms']:.4f} ({t['library_backend']}"
+                 + (f"; tf32 {t['library_tf32_ms']:.4f}"
+                    if "library_tf32_ms" in t else "") + ")")
+        print(f"time {name:9s} {tag} [{inst}]: kernel "
               f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f}, library "
               f"{lib_s}, bound {b:.4f} "
               f"({'bytes' if tb >= tf else 'operations'})")
     pair = {"ms": device_ms(lambda: (runs["attn_dkdv"][0](),
                                      runs["attn_dq"][0]())),
             "library_ms": out["attn_dkdv"]["library_ms"],
-            "bound_ms": sum(flash_bound(k, bh, s, s, dh, True, 2)[0]
+            "bound_ms": sum(flash_bound(k, bh, sq, s, dh, causal,
+                                        dt.itemsize)[0]
                             for k in ("attn_dkdv", "attn_dq"))}
-    print(f"time attn_bwd  BH={bh} S={s} dh={dh} causal bf16: kernels 5 + 6 "
+    print(f"time attn_bwd  {tag}: kernels 5 + 6 "
           f"{pair['ms']:.4f} ms, SDPA backward {pair['library_ms']:.4f} "
           f"({pair['ms'] / pair['library_ms']:.2f}x), bound "
           f"{pair['bound_ms']:.4f}")
     out["attn_bwd_pair"] = pair
+    return out
+
+
+# The flash instances still on the simple code (PERF.md §6 rows 4–6):
+# f32 at the ring's chunk (S/4 queries against S keys) and at the LM's
+# full S, bf16 at dh 256 (the D 256 instance) and dh 512 (the wide path).
+FLASH_SIMPLE = {
+    "f32_ring_chunk": dict(bh=192, s=1024, sq=256, dh=128, causal=False,
+                           dtype="float32"),
+    "f32_lm": dict(bh=192, s=1024, dh=128, dtype="float32"),
+    "bf16_dh256": dict(bh=48, s=1024, dh=256),
+    "bf16_dh512": dict(bh=16, s=1024, dh=512),
+}
+
+
+def time_flash_simple(dev) -> dict:
+    """time_flash at each FLASH_SIMPLE shape."""
+    import torch
+    out = {}
+    for label, kw in FLASH_SIMPLE.items():
+        out[label] = time_flash(dev, **kw)
+        torch.cuda.empty_cache()
     return out
 
 
@@ -974,6 +1085,111 @@ def sass_counts():
         need(out[name]["HGMMA"] > 0 and out[name]["UTMALDG"] > 0,
              f"{name}: no wgmma or TMA load in its SASS")
     return out
+
+
+TF32_KERNEL = re.compile(r"(dx_tf32|dw_tf32)ILb([01])E((?:Li\d+E)+)")
+
+
+def _tf32_label(mangled: str):
+    """"dx_tf32<MASK 1, 256>" for a mangled f32 Hopper kernel, else None."""
+    m = TF32_KERNEL.search(mangled)
+    if not m:
+        return None
+    ints = ", ".join(re.findall(r"Li(\d+)E", m.group(3)))
+    return f"{m.group(1)}<MASK {m.group(2)}, {ints}>"
+
+
+def tf32_instance_report() -> dict:
+    """ptxas's registers and spills, and the HGMMA (wgmma) and UTMALDG
+    (TMA load) instructions in the SASS, of each kernel of the f32 Hopper
+    instance of kernels 2 and 3 (dx_tf32, dw_tf32 at each tile width),
+    from this process's build: each must spill nothing and hold wgmma."""
+    from horovod_tpu_torch import kernels
+    out = {}
+    for lib in ("conv1x1_bn_act_bwd", "conv1x1_bn_bwd"):
+        fn = None
+        for line in kernels.ptxas_log.get(lib, "").splitlines():
+            m = re.search(r"(?:Compiling entry function|Function properties "
+                          r"for) '?([\w$]+)'?", line)
+            if m:
+                fn = _tf32_label(m.group(1))
+                continue
+            if fn is None:
+                continue
+            rec = out.setdefault(f"{lib}:{fn}", {})
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                rec["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+            if m:
+                rec["spill_stores"] = int(m.group(1))
+                rec["spill_loads"] = int(m.group(2))
+        tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                            "bin", "cuobjdump")
+        if os.path.exists(tool):
+            sass = subprocess.run([tool, "-sass", kernels._target(lib)],
+                                  capture_output=True, text=True,
+                                  timeout=120).stdout
+            fn = None
+            for line in sass.splitlines():
+                m = re.search(r"Function : (\S+)", line)
+                if m:
+                    fn = _tf32_label(m.group(1))
+                    continue
+                if fn is None:
+                    continue
+                rec = out.setdefault(f"{lib}:{fn}", {})
+                for op in ("HGMMA", "UTMALDG"):
+                    if f" {op}." in line or f" {op} " in line:
+                        rec[op] = rec.get(op, 0) + 1
+    out["max_clusters"] = tf32_dw_waves()
+    for name, rec in sorted(out.items()):
+        if name == "max_clusters":
+            continue
+        print(f"tf32 instance {name}: {rec.get('registers')} registers, "
+              f"spill stores {rec.get('spill_stores')}, loads "
+              f"{rec.get('spill_loads')}; {rec.get('HGMMA', 0)} HGMMA, "
+              f"{rec.get('UTMALDG', 0)} UTMALDG")
+    kern = {k: v for k, v in out.items() if k != "max_clusters"}
+    need(len(kern) == 18, f"not the 18 kernels of the f32 Hopper instance "
+         f"(dx at 3 widths, dW at 6 tiles, with and without the mask) in "
+         f"the build's ptxas log and SASS: {sorted(kern)}")
+    for name, rec in kern.items():
+        need(rec.get("spill_stores", 1) == 0 and rec.get("spill_loads", 1)
+             == 0, f"{name}: spills ({rec})")
+        need(rec.get("HGMMA", 0) > 0 and rec.get("UTMALDG", 0) > 0,
+             f"{name}: no wgmma or TMA load in its SASS ({rec})")
+    return out
+
+
+def tf32_dw_waves() -> dict:
+    """The clusters of f32 dW blocks the card holds at once
+    (cudaOccupancyMaxActiveClusters) by tile and cluster size, and a
+    check that at every ResNet-50 site (batch 32) the wrapper's plan
+    (`hopper_tf32_dw_plan`) fits in one wave."""
+    import ctypes
+    from horovod_tpu_torch import kernels
+    from horovod_tpu_torch.models import resnet
+    from horovod_tpu_torch.ops import conv_bn_backward as cbb
+    fn = kernels.lib("conv1x1_bn_act_bwd"
+                     ).hvd_conv1x1_bn_act_bwd_tf32_max_clusters
+    fn.argtypes, fn.restype = [ctypes.c_int] * 3, ctypes.c_int
+    occ = {(ct, nt, cl): fn(ct, nt, cl) for ct in (64, 128, 256)
+           for nt in (64, 128) for cl in (2, 4, 6, 8)}
+    print("tf32 dW clusters held at once (tile Cin x C, cluster size): "
+          + ", ".join(f"{ct}x{nt}/{cl}: {n}"
+                      for (ct, nt, cl), n in occ.items()))
+    for m, cin, c in sorted({(m, cin, c) for _, _, m, cin, c in
+                             resnet.fused_sites(50, 32, 224)}):
+        _, ct, nt = cbb.hopper_tf32_tiles(m, cin, c)
+        clusters, _ = cbb.hopper_tf32_dw_plan(m, cin, c)
+        cl = cbb.TF32_CLUSTER
+        tiles = math.ceil(cin / ct) * math.ceil(c / nt)
+        need(tiles * clusters <= occ[(ct, nt, cl)],
+             f"f32 dW at {(m, cin, c)}: {tiles * clusters} clusters of {cl}, "
+             f"more than the {occ[(ct, nt, cl)]} the card holds at once")
+    return {f"{ct}x{nt}/{cl}": n for (ct, nt, cl), n in occ.items()}
 
 
 # ---------------------------------------------------------------- main path
@@ -1090,16 +1306,27 @@ def main_path(batch=32, image=224, depth=50, warmup=2, timed=5):
     return out
 
 
-def resnet_f32_check(batch=32, image=224, depth=50):
-    """One f32 ResNet step on the block route (kernels 1 and 2 on tf32)
-    and one on the unfused route, from the same weights: the losses must
-    agree within TOL_LOSS_F32."""
+def resnet_f32_check(batch=32, image=224, depth=50, timed=3):
+    """The f32 ResNet step from the same weights on three routes: the
+    block route (kernels 1 and 2 on tf32, every site on kernel 2's f32
+    Hopper instance), the fuse_bn route (kernel 3 alone) and the unfused
+    route; each route's first loss and launches, then `timed` more steps
+    for its ms/step, the first of which gives the loss after one step of
+    the route's backward; both losses within TOL_LOSS_F32 of the unfused
+    route's."""
     import torch
     import torch.distributed as dist
     import horovod_tpu_torch as hvd
     from horovod_tpu_torch import synthetic_benchmark as sb
+    from horovod_tpu_torch.models import resnet
 
-    os.environ["HOROVOD_FUSE_CONV_BN"] = "0"
+    sites = resnet.fused_sites(depth, batch, image)
+    for kernel in ("act_bwd", "bn_bwd"):
+        insts = {instance(m, cin, c, torch.float32, kernel)
+                 for _, _, m, cin, c in sites}
+        need(insts == {"hopper_tf32"}, f"kernel {kernel}: the f32 "
+             f"ResNet-{depth} sites take {insts}, not only the f32 Hopper "
+             f"instance")
     dev, group = hvd.device(), dist.group.WORLD
     model = sb.build(f"resnet{depth}", torch.float32, dev)
     opt = sb.make_optimizer(model)
@@ -1107,26 +1334,122 @@ def resnet_f32_check(batch=32, image=224, depth=50):
     snap_m = copy.deepcopy(model.state_dict())
     snap_o = copy.deepcopy(opt.state_dict())
     out = {}
-    for route, flag in (("block", "1"), ("unfused", "0")):
-        os.environ["HOROVOD_CONV_BLOCK"] = flag
+    for route, block, fuse in (("block", "1", "0"), ("fuse_bn", "0", "1"),
+                               ("unfused", "0", "0")):
+        os.environ["HOROVOD_CONV_BLOCK"] = block
+        os.environ["HOROVOD_FUSE_CONV_BN"] = fuse
         model.load_state_dict(snap_m)
         opt.load_state_dict(snap_o)
         reset_counters()
         out[route] = sb.train_step(model, opt, data, group).item()
         out[route + "_launches"] = read_counters()
-    rel = abs(out["block"] - out["unfused"]) / max(abs(out["unfused"]),
-                                                    1e-6)
-    out["loss_rel"] = rel
-    print(f"f32 route check: block loss {out['block']:.6f} (launches "
-          f"{out['block_launches']}), unfused {out['unfused']:.6f}, "
-          f"relative difference {rel:.3g} (tolerance {TOL_LOSS_F32})")
-    need(math.isfinite(out["block"]), "non-finite f32 loss")
-    need(out["block_launches"]["fwd"] == 28
-         and out["block_launches"]["act_bwd"] == 28,
-         "f32 block route: expected 28 + 28 launches")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses = [sb.train_step(model, opt, data, group)
+                  for _ in range(timed)]
+        torch.cuda.synchronize()
+        out[route + "_step_ms"] = (time.perf_counter() - t0) / timed * 1e3
+        # the loss after one step: it has run the route's backward
+        out[route + "_second"] = float(losses[0])
+    os.environ["HOROVOD_FUSE_CONV_BN"] = "0"
+    for route in ("block", "fuse_bn"):
+        rel, rel2 = (abs(out[route + k] - out["unfused" + k])
+                     / max(abs(out["unfused" + k]), 1e-6)
+                     for k in ("", "_second"))
+        out[route + "_loss_rel"], out[route + "_second_rel"] = rel, rel2
+        print(f"f32 route check: {route} losses {out[route]:.6f}, "
+              f"{out[route + '_second']:.6f} (launches "
+              f"{out[route + '_launches']}), unfused {out['unfused']:.6f}, "
+              f"{out['unfused_second']:.6f}, relative differences {rel:.3g}, "
+              f"{rel2:.3g} (tolerance {TOL_LOSS_F32}); "
+              f"{out[route + '_step_ms']:.2f} ms/step against unfused "
+              f"{out['unfused_step_ms']:.2f}")
+        need(math.isfinite(out[route]) and math.isfinite(
+            out[route + "_second"]), f"non-finite f32 {route} loss")
+        need(rel <= TOL_LOSS_F32 and rel2 <= TOL_LOSS_F32,
+             f"f32 {route} and unfused losses disagree")
+    out["loss_rel"] = out["block_loss_rel"]
+    bl, fl = out["block_launches"], out["fuse_bn_launches"]
+    need(bl["fwd"] == 28 and bl["act_bwd"] == 28 and bl["bn_bwd"] == 0,
+         f"f32 block route: expected 28 + 28 launches, got {bl}")
+    need(fl["bn_bwd"] == 28 and fl["fwd"] == 0 and fl["act_bwd"] == 0,
+         f"f32 fuse_bn route: expected 28 launches of kernel 3, got {fl}")
     need(sum(out["unfused_launches"].values()) == 0,
          "the unfused route ran a kernel")
-    need(rel <= TOL_LOSS_F32, "f32 block and unfused losses disagree")
+    return out
+
+
+C13_RUNS = 5                # backward passes from one state
+TIED_SHAPES = {"tests": (dict(vocab=256, d_model=32, d_ff=64, n_layers=2),
+                         8, 16),
+               "canonical": (dict(vocab=8192, d_model=512, d_ff=2048,
+                                  n_layers=2), 64, 64)}
+
+
+def lm_determinism_check(runs=C13_RUNS) -> dict:
+    """Fault C13 on the card: do the LMs' embedding and loss backward
+    passes sum in a run-to-run order? Phase 5's flagship LM (seed-0
+    weights, its batch with every other token drawn from 64 ids, so each
+    of those embedding rows is looked up ~96 times) runs `runs` backward
+    passes of transformer.loss_fn from the same parameters, no optimizer
+    step; the embed and unembed gradients must be bit-identical. The
+    same for the tied LM's global_loss at the shapes its tests use and
+    at the canonical shapes (emb's gradient: the lookup and the tied
+    unembedding). Bit-identical gradients mean CUDA's index_put_ with
+    accumulate (sorted) and the target gather's scatter_add_ (one index a
+    row) are no HVD504 hazard (analysis/graph.py ATOMIC_OPS)."""
+    import torch
+    from horovod_tpu_torch import transformer_lm as lm
+    from horovod_tpu_torch.models import tied_lm
+    from horovod_tpu_torch.models import transformer as tfm
+    dev = torch.device("cuda", 0)
+    out = {}
+    cfg = tfm.TransformerConfig(**lm.FLAGSHIP, attn="flash",
+                                dtype=torch.bfloat16)
+    model = tfm.TransformerLM(cfg, seed=0, device=dev)
+    tokens, _ = lm.make_batch(lm.FLAGSHIP_BATCH, cfg.max_seq, cfg.vocab, dev,
+                              seed=0)
+    tokens[:, ::2] %= 64
+    targets = torch.roll(tokens, -1, dims=1)
+    grads = []
+    for _ in range(runs):
+        model.zero_grad(set_to_none=True)
+        tfm.loss_fn(model, tokens, targets).backward()
+        grads.append((model.embed.grad.clone(), model.unembed.grad.clone()))
+    torch.cuda.synchronize()
+    same = [all(bool(torch.equal(a, b)) for a, b in zip(grads[0], g))
+            for g in grads[1:]]
+    out["flagship"] = dict(runs=runs, distinct_tokens=int(
+        tokens.unique().numel()), tokens=tokens.numel(),
+        bit_identical=all(same))
+    print(f"C13 flagship LM (L{cfg.n_layers} D{cfg.d_model} V{cfg.vocab} "
+          f"B{tokens.shape[0]} S{tokens.shape[1]} bf16): {runs} backward "
+          f"passes from one state, {out['flagship']['distinct_tokens']} "
+          f"distinct of {tokens.numel()} tokens; embed and unembed "
+          f"gradients bit-identical to the first: {same}")
+    del model, grads
+    torch.cuda.empty_cache()
+    for label, (kw, batch, seq) in TIED_SHAPES.items():
+        tcfg = tied_lm.TiedLMConfig(**kw)
+        params = tied_lm.init(0, tcfg, device=dev)
+        emb = params["emb"].requires_grad_(True)
+        tok, tgt = tied_lm.sample_batch(1, tcfg, batch=batch, seq=seq,
+                                        device=dev)
+        gs = [torch.autograd.grad(
+            tied_lm.global_loss(params, tok, tgt, tcfg), emb)[0]
+            for _ in range(runs)]
+        torch.cuda.synchronize()
+        tsame = [bool(torch.equal(gs[0], g)) for g in gs[1:]]
+        out["tied_" + label] = dict(runs=runs, bit_identical=all(tsame),
+                                    distinct_tokens=int(tok.unique().numel()),
+                                    tokens=tok.numel())
+        print(f"C13 tied LM global_loss ({label}: V{tcfg.vocab} "
+              f"D{tcfg.d_model} B{batch} S{seq} f32): {runs} backward passes, "
+              f"{int(tok.unique().numel())} distinct of {tok.numel()} tokens; "
+              f"emb gradients bit-identical to the first: {tsame}")
+    need(all(v["bit_identical"] for v in out.values()),
+         "C13: an LM's embedding or loss gradient differs between backward "
+         "passes from one state (graph.py ATOMIC_OPS says it cannot)")
     return out
 
 
@@ -5677,6 +6000,8 @@ def analyzers_path(block_loss: float, serving: dict) -> dict:
              f"(a): launches {launches}, not 28 + 28")
         need(a["loss"] == block_loss, "(a): the recorded step's loss is not "
              "phase 4's bit for bit")
+        need("HVD504" not in a["findings"], "(a): HVD504 on the ResNet "
+             "step: its loss gather's backward writes each address once")
         need(prog.device_memory == torch.cuda.get_device_properties(
             dev).total_memory, "(a): the program's budget is not the card's "
              "memory")
@@ -5705,6 +6030,8 @@ def analyzers_path(block_loss: float, serving: dict) -> dict:
              and launches["attn_dq"] == n,
              f"(b): launches {launches}, not {n} + {n} + {n}")
         need(math.isfinite(b["loss"]), "(b): non-finite loss")
+        need("HVD504" not in b["findings"], "(b): HVD504 on the LM step, "
+             "which phase 5's C13 check found deterministic")
         out["b"] = b
         del model, opt, step, data, prog
         torch.cuda.empty_cache()
@@ -5758,6 +6085,7 @@ def main() -> int:
                                        "Compiling entry")):
                 print(f"ptxas {name}: {line.strip()}")
     sass = sass_counts()
+    tf32 = tf32_instance_report()
     lap("1 build")
 
     errs = check_kernels(dev, torch.bfloat16)  # the main path's type
@@ -5771,9 +6099,13 @@ def main() -> int:
         for k, t in a.items():
             print(f"time {k} {tag} per ResNet-50 step: kernel "
                   f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f}, library "
-                  f"{t['library_ms']:.4f}, bound {t['bound_ms']:.4f}")
+                  f"{t['library_ms']:.4f}"
+                  + (f" (tf32 {t['library_tf32_ms']:.4f})"
+                     if "library_tf32_ms" in t else "")
+                  + f", bound {t['bound_ms']:.4f}")
     agg.update(time_flash(dev))
-    wide = time_flash(dev, bh=16, s=1024, dh=512, heads=16)  # the wide path
+    flash_simple = time_flash_simple(dev)
+    wide = flash_simple["bf16_dh512"]  # the wide path
     torch.cuda.empty_cache()
     lap("2-3 kernel checks and times")
 
@@ -5784,6 +6116,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     lap("4 ResNet main path")
     lm = lm_path()
+    torch.cuda.empty_cache()
+    lm["c13"] = lm_determinism_check()
     hvd.shutdown()
     torch.cuda.empty_cache()
     lap("5 LM main path")
@@ -5848,6 +6182,7 @@ def main() -> int:
     os.makedirs("chiprun_out", exist_ok=True)
     with open("chiprun_out/chip_smoke.json", "w") as f:
         json.dump({"build_s": build_s, "sass": sass, "repeat": repeat,
+                   "tf32_instance": tf32, "flash_simple": flash_simple,
                    "flash_wide_dh512": wide,
                    "attn_bwd_pair": agg["attn_bwd_pair"],
                    "kernels": line["kernels"],

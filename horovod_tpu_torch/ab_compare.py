@@ -2,7 +2,7 @@
 ResNet-50 step, flash kernels 4–6 and the LM step.
 
     python -m horovod_tpu_torch.ab_compare OTHER_CHECKOUT [--rounds 1]
-        [--lm-only]
+        [--lm-only | --f32]
 
 Run from the root of a checkout. Each round runs OTHER, this, this,
 OTHER, each in a fresh process from its own checkout (which builds its
@@ -19,8 +19,12 @@ checkout's chip_smoke times it), scaled_dot_product_attention's forward
 and backward ms, `conv_wrapper_host_us`, ms/step and tokens/s. --lm-only runs the LM
 step alone (phase 5 of each checkout's chip_smoke), so that many rounds
 fit in one call; the last line, `AB summary {json}`, gives each side's
-LM ms/step: every run's, the median, the least and the most. Two
-versions are compared only inside one such call.
+LM ms/step: every run's, the median, the least and the most. --f32 runs
+`chip_smoke.time_kernels` in f32 instead, then the f32 ResNet-50 step
+(224², batch 32, 2 warm-up and 5 timed steps) on the block route
+(kernels 1 and 2) and on the fuse_bn route (kernel 3); its summary is
+the block route's ms/step. Two versions are compared only inside one
+such call.
 """
 
 from __future__ import annotations
@@ -49,6 +53,36 @@ from horovod_tpu_torch import kernels
 kernels.build_all()
 dev = torch.device("cuda", 0)
 res = {}
+if sys.argv[3] == "f32":
+    # kernels 1-3 in f32 over the 28 sites, then the f32 ResNet-50 step
+    # (224², batch 32) on the block and fuse_bn routes, 2 warm-up and 5
+    # timed steps each, from the same seed-0 weights
+    import time
+    import torch.distributed as dist
+    from horovod_tpu_torch import synthetic_benchmark as sb
+    conv, sites = cs.time_kernels(dev, torch.float32)
+    res = {"conv_step_ms": {k: v["ms"] for k, v in conv.items()},
+           "conv_sites_ms": [[d["kernel"], d["M"], d["Cin"], d["C"],
+                              d["ms"]] for d in sites]}
+    hvd.init()
+    model = sb.build("resnet50", torch.float32, dev)
+    opt = sb.make_optimizer(model)
+    data = sb.make_batch(32, 224, torch.float32, dev, seed=0)
+    for route, block, fuse in (("block", "1", "0"), ("fuse_bn", "0", "1")):
+        os.environ["HOROVOD_CONV_BLOCK"] = block
+        os.environ["HOROVOD_FUSE_CONV_BN"] = fuse
+        for _ in range(2):
+            sb.train_step(model, opt, data, dist.group.WORLD)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            sb.train_step(model, opt, data, dist.group.WORLD)
+        torch.cuda.synchronize()
+        res[f"f32_{route}_step_ms"] = (time.perf_counter() - t0) / 5 * 1e3
+    hvd.shutdown()
+    res["step_ms"] = res["f32_block_step_ms"]
+    print("AB", sys.argv[1], json.dumps(res), flush=True)
+    sys.exit(0)
 if sys.argv[3] != "lm":
     conv, sites = cs.time_kernels(dev, torch.bfloat16)
     t = cs.time_flash(dev)
@@ -88,6 +122,9 @@ def main() -> int:
     p.add_argument("--rounds", type=int, default=1)
     p.add_argument("--lm-only", action="store_true",
                    help="time the LM step alone")
+    p.add_argument("--f32", action="store_true",
+                   help="kernels 1-3 in f32 and the f32 ResNet-50 step on "
+                        "the block and fuse_bn routes")
     a = p.parse_args()
     trees = {"other": os.path.abspath(a.other), "this": os.getcwd()}
     rc, step_ms = 0, {"other": [], "this": []}
@@ -95,7 +132,8 @@ def main() -> int:
         for side in ("other", "this", "this", "other"):
             r = subprocess.run([sys.executable, "-c", _CHILD, side,
                                 trees["this"],
-                                "lm" if a.lm_only else "all"],
+                                "lm" if a.lm_only else
+                                "f32" if a.f32 else "all"],
                                cwd=trees[side], capture_output=True,
                                text=True, timeout=900)
             lines = [ln for ln in r.stdout.splitlines()

@@ -149,11 +149,28 @@ RANDOM_OPS = frozenset({
     "native_dropout", "poisson",
 })
 
-#: Ops that accumulate with CUDA atomics (HVD504): name -> the keyword
-#: that must be true for it to accumulate (None: always).
-ATOMIC_OPS = {"index_add": None, "scatter_add": None,
-              "index_put": "accumulate", "_index_put_impl": "accumulate",
+#: Ops that accumulate with CUDA atomics in a run-to-run order (HVD504):
+#: name -> the keyword that must be true for it to accumulate (None:
+#: always; COLLIDE: when two of its indices can meet one address).
+#: `index_put_(accumulate=True)` is not one: CUDA sorts its indices and
+#: sums each address's values in that order, and a `scatter_add_` with one
+#: index along the scattered dim (a gather's backward, one target a row)
+#: never writes one address twice. Five backward passes of the flagship
+#: LM step from one state gave bit-identical embedding and unembedding
+#: gradients on an H100, and so did the tied LM's global_loss
+#: (chip_smoke.py lm_determinism_check).
+COLLIDE = "<collide>"
+ATOMIC_OPS = {"index_add": None, "scatter_add": COLLIDE,
               "put": "accumulate"}
+
+
+def _can_collide(values) -> bool:
+    """Whether scatter_add(self, dim, index, src) can add two values into
+    one address: more than one index along `dim` in some row."""
+    index, dim = values.get("index"), values.get("dim", 0)
+    if not isinstance(index, torch.Tensor) or index.dim() == 0:
+        return False
+    return index.shape[dim] > 1
 
 _NUMBER_SLOTS = ("Tensor", "Scalar", "Optional[Tensor]", "Optional[Scalar]",
                  "number", "Tensor?", "Scalar?")
@@ -410,7 +427,8 @@ class Recorder(TorchDispatchMode):
                 if values.get("generator") is not None else "rng"
         if base in ATOMIC_OPS:
             key = ATOMIC_OPS[base]
-            if key is None or values.get(key) is True:
+            if key is None or values.get(key) is True or (
+                    key == COLLIDE and _can_collide(values)):
                 attrs.append(ATOMIC_ATTR)
         if base == "_local_scalar_dense" and args[0].device.type == "cpu" \
                 and self._cuda is not None:

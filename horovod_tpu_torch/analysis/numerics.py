@@ -97,9 +97,11 @@ KEYLESS_RNG_OPS = frozenset({"rng", "rng_uniform", "rng_normal"})
 
 #: The other determinism hazard of a recorded step: an op that
 #: accumulates with CUDA atomics, whose summation order differs from
-#: run to run (``index_add_``, ``scatter_add_``, ``index_put_`` with
-#: accumulate=True). The recorder marks it with this attribute (on the
-#: host too: the same step on the card takes the atomic path).
+#: run to run (``index_add_``; ``scatter_add_`` where two indices can meet
+#: one address). ``index_put_`` with accumulate=True sorts its indices on
+#: CUDA and is not one (graph.py ATOMIC_OPS, after a chip run). The
+#: recorder marks such an op with this attribute (on the host too: the
+#: same step on the card takes the atomic path).
 ATOMIC_ATTR = "atomic_accumulate=true"
 
 

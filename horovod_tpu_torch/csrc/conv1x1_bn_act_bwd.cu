@@ -20,15 +20,19 @@
 // here dx and dW are two launches over parallel blocks, dW split over M
 // and summed in a fixed order.
 //
-// Two instances, chosen by the wrapper from shape and dtype alone
+// Three instances, chosen by the wrapper from shape and dtype alone
 // (ops/conv_bn_backward.py bwd_instance):
 //   hvd_conv1x1_bn_act_bwd_hopper: bf16 with Cin, C multiples of 8 in
 //     [64, 1024] (every ResNet-50 site): wgmma, TMA rings, dy formed once
 //     per product per block, dW split-K summed through thread-block
 //     clusters (conv1x1_bwd_hopper.cuh, whose note gives the design);
-//   hvd_conv1x1_bn_act_bwd_{bf16,f32}: every other shape, and f32: the
-//     simple mma.sync GEMM of conv1x1_gemm.cuh, dy formed in its loaders.
-#include "conv1x1_bwd_hopper.cuh"
+//   hvd_conv1x1_bn_act_bwd_hopper_tf32: f32 with Cin, C multiples of 4 in
+//     [64, 1024] (every ResNet-50 site): the same design on tf32 wgmma,
+//     dW's x^T from registers and dy^T written K-major
+//     (conv1x1_bwd_hopper_f32.cuh);
+//   hvd_conv1x1_bn_act_bwd_{bf16,f32}: every other shape: the simple
+//     mma.sync GEMM of conv1x1_gemm.cuh, dy formed in its loaders.
+#include "conv1x1_bwd_hopper_f32.cuh"
 
 namespace hvd {
 template <class T>
@@ -87,6 +91,35 @@ extern "C" int hvd_conv1x1_bn_act_bwd_hopper(
       static_cast<bf16*>(dx), static_cast<float*>(ws),
       static_cast<float*>(dw), M, Cin, C, nb, ct, nt, clusters, chunk,
       reinterpret_cast<cudaStream_t>(stream));
+}
+
+extern "C" int hvd_conv1x1_bn_act_bwd_hopper_tf32(
+    const void* dz, const void* y, const void* x, const void* w,
+    const void* g, const void* mean, const void* inv, const void* a,
+    const void* b, const void* scale, const void* bias, void* dx, void* ws,
+    void* dw, int M, int Cin, int C, int nb, int ct, int nt, int clusters,
+    int chunk, void* stream) {
+  hvd::cbh::Rows rows{static_cast<const float*>(g),
+                      static_cast<const float*>(mean),
+                      static_cast<const float*>(inv),
+                      static_cast<const float*>(a),
+                      static_cast<const float*>(b),
+                      static_cast<const float*>(scale),
+                      static_cast<const float*>(bias)};
+  return hvd::cbh32::launch_bwd_tf32<true>(
+      static_cast<const float*>(dz), static_cast<const float*>(y),
+      static_cast<const float*>(x), static_cast<const float*>(w), rows,
+      static_cast<float*>(dx), static_cast<float*>(ws),
+      static_cast<float*>(dw), M, Cin, C, nb, ct, nt, clusters, chunk,
+      reinterpret_cast<cudaStream_t>(stream));
+}
+
+// Clusters of `cl` blocks of the f32 dW kernel at tile (ct, nt) that the
+// current card holds at once, or -1 (what chose the split plan's cluster
+// size, and its check; kernel 3's dW blocks take the same resources).
+extern "C" int hvd_conv1x1_bn_act_bwd_tf32_max_clusters(int ct, int nt,
+                                                        int cl) {
+  return hvd::cbh32::dw_max_clusters<true>(ct, nt, cl);
 }
 
 HVD_FOLD_ROWS_ENTRY(hvd_conv1x1_bn_act_fold_rows)

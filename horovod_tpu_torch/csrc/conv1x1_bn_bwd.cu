@@ -11,9 +11,11 @@
 // which it is the MASK = false instance: bytes-bound at most sites;
 // dy = (g*dz - a) - b*xhat formed on chip, rounded to the input type
 // and never stored; hvd_conv1x1_bn_bwd_hopper for bf16 at Cin, C
-// multiples of 8 in [64, 1024] (conv1x1_bwd_hopper.cuh), the simple
-// mma.sync code (conv1x1_gemm.cuh) for f32 and every other shape.
-#include "conv1x1_bwd_hopper.cuh"
+// multiples of 8 in [64, 1024] (conv1x1_bwd_hopper.cuh),
+// hvd_conv1x1_bn_bwd_hopper_tf32 for f32 at Cin, C multiples of 4 in
+// [64, 1024] (conv1x1_bwd_hopper_f32.cuh), the simple mma.sync code
+// (conv1x1_gemm.cuh) for every other shape.
+#include "conv1x1_bwd_hopper_f32.cuh"
 
 namespace hvd {
 template <class T>
@@ -63,6 +65,25 @@ extern "C" int hvd_conv1x1_bn_bwd_hopper(
       static_cast<const bf16*>(dz), static_cast<const bf16*>(y),
       static_cast<const bf16*>(x), static_cast<const bf16*>(w), rows,
       static_cast<bf16*>(dx), static_cast<float*>(ws),
+      static_cast<float*>(dw), M, Cin, C, nb, ct, nt, clusters, chunk,
+      reinterpret_cast<cudaStream_t>(stream));
+}
+
+extern "C" int hvd_conv1x1_bn_bwd_hopper_tf32(
+    const void* dz, const void* y, const void* x, const void* w,
+    const void* g, const void* mean, const void* inv, const void* a,
+    const void* b, void* dx, void* ws, void* dw, int M, int Cin,
+    int C, int nb, int ct, int nt, int clusters, int chunk, void* stream) {
+  hvd::cbh::Rows rows{static_cast<const float*>(g),
+                      static_cast<const float*>(mean),
+                      static_cast<const float*>(inv),
+                      static_cast<const float*>(a),
+                      static_cast<const float*>(b),
+                      nullptr, nullptr};
+  return hvd::cbh32::launch_bwd_tf32<false>(
+      static_cast<const float*>(dz), static_cast<const float*>(y),
+      static_cast<const float*>(x), static_cast<const float*>(w), rows,
+      static_cast<float*>(dx), static_cast<float*>(ws),
       static_cast<float*>(dw), M, Cin, C, nb, ct, nt, clusters, chunk,
       reinterpret_cast<cudaStream_t>(stream));
 }

@@ -2,9 +2,10 @@
 // (bf16, sm_90a): dy = (g * dz - a) - b * xhat (kernel 2 also masks dz
 // with the forward's ReLU), dx = dy . w^T in bf16 and dW = x^T . dy in
 // f32, dy never written to device memory. Kernels 2 and 3 are its two
-// instances (MASK true, false); f32 and the shapes that `bwd_instance`
-// (ops/conv_bn_backward.py) sends elsewhere keep the simple mma.sync
-// code of conv1x1_gemm.cuh.
+// instances (MASK true, false); f32 runs the tf32 sibling of this
+// design (conv1x1_bwd_hopper_f32.cuh), and the shapes that
+// `bwd_instance` (ops/conv_bn_backward.py) sends elsewhere keep the
+// simple mma.sync code of conv1x1_gemm.cuh.
 //
 // What the H100 bounds, and what each part of the design does about it:
 //

@@ -572,13 +572,19 @@ def run_elastic(args, command: List[str], extra_env: Dict[str, str]) -> int:
         max_num_proc=args.max_num_proc,
         reset_limit=args.reset_limit,
         publish_fn=publisher.publish)
+    rc = 1
     try:
         driver.start(start_timeout=args.start_timeout)
-        return drive_elastic_loop(driver, args.elastic_timeout)
+        rc = drive_elastic_loop(driver, args.elastic_timeout)
+        return rc
     finally:
         # What the workers pushed lives only in this KV: write it out
-        # before it goes (HOROVOD_FLIGHT_DIR, when set).
-        from horovod_tpu_torch.runner.launch import persist_job_records
-        persist_job_records(rdv)
+        # before it goes (HOROVOD_FLIGHT_DIR, when set), then point the
+        # operator at the doctor when the job failed.
+        from horovod_tpu_torch.runner.launch import (persist_job_records,
+                                                     print_doctor_hint)
+        tails = persist_job_records(rdv)
+        if rc != 0:
+            print_doctor_hint("elastic", tails)
         publisher.close()
         rdv.stop()

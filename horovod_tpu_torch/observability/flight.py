@@ -282,7 +282,9 @@ class FlightRecorder:
         p = self.last_dump_path
         if not p:
             return ""
-        return f"; flight recorder dump: {p}"
+        return (f"; flight recorder dump: {p} (merge with "
+                f"`python -m horovod_tpu_torch.observability.doctor --dir "
+                f"{os.path.dirname(p)}`)")
 
     # ---------------------------------------------------------- KV tail
     def _kv_client(self):

@@ -13,10 +13,12 @@ what bounds it on the H100 and how its design answers that. Beside it
 here: `_bwd_plain`, the same function in plain PyTorch, which a CPU
 tensor takes and which the card checks compare against; and the launch
 counter `conv1x1_bn_bwd_fused.launches`. A CUDA tensor always launches
-the kernel, or raises. bf16 and f32 are both kernel types: bf16 at the
-shapes `bwd_instance` names runs the Hopper instance (wgmma, TMA rings,
-dW split-K through thread-block clusters); f32 runs the tf32 instance
-(mma.sync m16n8k8), never a cast down to bf16.
+the kernel, or raises. bf16 and f32 are both kernel types: at the shapes
+`bwd_instance` names (every ResNet-50 site) bf16 runs the Hopper
+instance (wgmma, TMA rings, dW split-K through thread-block clusters)
+and f32 its tf32 sibling (tf32 wgmma, the same rings and clusters);
+other shapes run the simple mma.sync code; f32 is never cast down to
+bf16.
 
 This module also holds what ops/conv_block.py shares with it, as in the
 JAX package: the folding of the per-channel rows, the plain backward
@@ -100,7 +102,7 @@ _SUFFIX = {torch.bfloat16: "bf16", torch.float32: "f32"}
 def check_cuda_args(what: str, mats: Sequence[torch.Tensor],
                     rows: Sequence[torch.Tensor]) -> str:
     """The kernels take contiguous matrices of one dtype, bf16 or f32 (f32
-    runs the tf32 instance), and contiguous f32 rows, all on one CUDA
+    runs tf32 products), and contiguous f32 rows, all on one CUDA
     device. Returns the C entry point's dtype suffix."""
     dev, dtype = mats[0].device, mats[0].dtype
     for t in (*mats, *rows):
@@ -134,26 +136,46 @@ def dw_splits(m: int, cin: int, c: int) -> Tuple[int, int]:
     return math.ceil(m / chunk), chunk
 
 
-# The Hopper instances (csrc/conv1x1_bwd_hopper.cuh): dW split over M in
-# thread-block clusters of HOPPER_CLUSTER blocks, at most HOPPER_WAVE
-# blocks for the tiles that one wave covers.
+# The Hopper instances (csrc/conv1x1_bwd_hopper.cuh, and for f32
+# csrc/conv1x1_bwd_hopper_f32.cuh): dW split over M in thread-block
+# clusters of HOPPER_CLUSTER blocks, at most HOPPER_WAVE blocks for the
+# tiles that one wave covers.
 HOPPER_CLUSTER = 8
 HOPPER_WAVE = 128
+# The f32 instance runs tf32 wgmma, whose shared-memory operands are
+# K-major rows of 128 bytes: a ring step is 32 f32 values (bf16: 64).
+TF32_STEP = 32
+SMEM_MAX = 232448  # bytes of shared memory a block can take on the H100
+TF32_MIN_STAGES, TF32_MAX_STAGES = 3, 4
+# The f32 dW blocks take one SM each (their ring needs more than half of
+# its shared memory). Their time follows the bytes a block loads over the
+# blocks in flight, and an H100 80GB HBM3 holds at once 15 clusters of 8
+# such blocks, 17 of 6, 30 of 4 and 66 of 2 (cudaOccupancyMaxActiveClusters,
+# chip_smoke.py tf32_instance_report): clusters of 2 put a block on every
+# SM in one wave, and measured fastest at every ResNet-50 site
+# (PERF.md); a plan with more clusters than the card holds runs a second
+# wave, at twice the time.
+TF32_CLUSTER = 2
+TF32_WAVE = 132
 
 
 def bwd_instance(m: int, cin: int, c: int, dtype: torch.dtype) -> str:
     """Which instance of kernels 2 and 3 runs (m, cin, c) in `dtype`:
-    "hopper" (wgmma, TMA, clusters) for bf16 with Cin and C multiples of
-    8 (TMA's 16-byte stride rule) between 64 and 1024 (the per-channel
-    rows of up to 1024 channels stay in shared memory), which every
-    ResNet-50 site is; else "simple" (mma.sync): f32, whose tf32 wgmma
-    needs K-major operands where both dW operands are MN-major, and
-    every other shape. A function of shape and dtype alone: a launch or
-    build that fails raises, it never picks the other instance."""
+    "hopper" (bf16 wgmma, TMA, clusters) for bf16 with Cin and C
+    multiples of 8, and "hopper_tf32" (tf32 wgmma, the same design) for
+    f32 with Cin and C multiples of 4 (TMA's 16-byte stride rule), both
+    with Cin and C between 64 and 1024 (the per-channel rows of up to
+    1024 channels stay in shared memory), which every ResNet-50 site is;
+    else "simple" (mma.sync). A function of shape and dtype alone: a
+    launch or build that fails raises, it never picks the other
+    instance."""
     del m  # any M: TMA fills the ragged row edge with zeros
-    if (dtype == torch.bfloat16 and cin % 8 == 0 and c % 8 == 0
-            and 64 <= cin <= 1024 and 64 <= c <= 1024):
+    if not (64 <= cin <= 1024 and 64 <= c <= 1024):
+        return "simple"
+    if dtype == torch.bfloat16 and cin % 8 == 0 and c % 8 == 0:
         return "hopper"
+    if dtype == torch.float32 and cin % 4 == 0 and c % 4 == 0:
+        return "hopper_tf32"
     return "simple"
 
 
@@ -165,27 +187,85 @@ def hopper_tiles(m: int, cin: int, c: int) -> Tuple[int, int, int]:
     as at M 6272: forming dy twice as often costs less there than idle
     SMs (measured on an H100)."""
     ct = 64 if cin <= 64 else 128 if cin <= 128 else 256
-    nb = ct
-    if nb == 256 and math.ceil(m / 128) * math.ceil(cin / 256) \
-            < 2 * _SM_COUNT:
-        nb = 128
-    return nb, ct, 64 if c <= 64 else 128
+    return _dx_width(m, cin, ct, 2 * _SM_COUNT), ct, 64 if c <= 64 else 128
+
+
+def _dx_width(m: int, cin: int, widest: int, min_jobs: int) -> int:
+    """`widest`, or 128 where 256-wide dx tiles give fewer than
+    `min_jobs` jobs (128-row tiles x Cin tiles)."""
+    if widest == 256 and math.ceil(m / 128) * math.ceil(cin / 256) \
+            < min_jobs:
+        return 128
+    return widest
+
+
+def _dw_split(m: int, tiles: int, step: int, cl: int = HOPPER_CLUSTER,
+              wave: int = HOPPER_WAVE) -> Tuple[int, int]:
+    """(clusters, chunk): each of `tiles` dW tiles split over M into
+    clusters x `cl` blocks of `chunk` rows (a multiple of the ring step),
+    in order: block s takes rows [s·chunk, (s+1)·chunk). tiles x clusters
+    <= wave / cl (or clusters is 1), so the f32 workspace that holds the
+    clusters' sums when clusters > 1 is at most that many tiles."""
+    clusters = max(1, wave // cl // tiles)
+    splits = clusters * cl
+    chunk = step * max(1, math.ceil(m / splits / step))
+    clusters = max(1, math.ceil(math.ceil(m / chunk) / cl))
+    return clusters, chunk
 
 
 def hopper_dw_plan(m: int, cin: int, c: int) -> Tuple[int, int]:
-    """(clusters, chunk) of the Hopper dW pass: each dW tile is split over
-    M into clusters x HOPPER_CLUSTER blocks of `chunk` rows (a multiple
-    of 64, the ring step), in order: block s takes rows
-    [s·chunk, (s+1)·chunk). tiles x clusters <= HOPPER_WAVE /
-    HOPPER_CLUSTER (or clusters is 1), so the f32 workspace that holds
-    the clusters' sums when clusters > 1 is at most that many tiles."""
+    """(clusters, chunk) of the bf16 Hopper dW pass (`_dw_split`, 64-row
+    ring steps)."""
     _, ct, nt = hopper_tiles(m, cin, c)
+    return _dw_split(m, math.ceil(cin / ct) * math.ceil(c / nt), 64)
+
+
+def hopper_tf32_tiles(m: int, cin: int, c: int) -> Tuple[int, int, int]:
+    """(NB, CT, NT) of the f32 instance: dx the smallest width that holds
+    Cin, up to 256, but 128 where 256-wide tiles give fewer jobs than
+    half the SMs (M 6272 at Cin 256, where 128-wide tiles measured
+    faster on an H100; at Cin 1024 256-wide ones did); the dW tile the
+    smallest that holds Cin and C, up to 256 x 128, where the ring of 3
+    stages and the two dyᵀ buffers fit in shared memory
+    (`hopper_tf32_smem`)."""
+    ct = 64 if cin <= 64 else 128 if cin <= 128 else 256
+    return (_dx_width(m, cin, ct, _SM_COUNT // 2), ct,
+            64 if c <= 64 else 128)
+
+
+def hopper_tf32_dw_plan(m: int, cin: int, c: int) -> Tuple[int, int]:
+    """(clusters, chunk) of the f32 Hopper dW pass: clusters of
+    TF32_CLUSTER blocks, at most TF32_WAVE blocks for the tiles that one
+    wave covers (`_dw_split`, 32-row ring steps)."""
+    _, ct, nt = hopper_tf32_tiles(m, cin, c)
     tiles = math.ceil(cin / ct) * math.ceil(c / nt)
-    clusters = max(1, HOPPER_WAVE // HOPPER_CLUSTER // tiles)
-    splits = clusters * HOPPER_CLUSTER
-    chunk = 64 * max(1, math.ceil(m / splits / 64))
-    clusters = max(1, math.ceil(math.ceil(m / chunk) / HOPPER_CLUSTER))
-    return clusters, chunk
+    return _dw_split(m, tiles, TF32_STEP, TF32_CLUSTER, TF32_WAVE)
+
+
+def _tf32_stages(stage: int, fixed: int) -> int:
+    st = (SMEM_MAX - 1024 - fixed) // stage
+    return 0 if st < TF32_MIN_STAGES else min(st, TF32_MAX_STAGES)
+
+
+def hopper_tf32_smem(m: int, cin: int, c: int) -> dict:
+    """The shared-memory plan of the f32 instance's two kernels, the
+    arithmetic of csrc/conv1x1_bwd_hopper_f32.cuh launch_dx_tf32 and
+    dw_smem: ring stages and bytes a block of each, and the dW
+    partial tile that reuses the ring. A launch refuses (stages 0) a
+    shape where fewer than TF32_MIN_STAGES stages fit."""
+    nb, ct, nt = hopper_tf32_tiles(m, cin, c)
+    bars = 2 * TF32_MAX_STAGES * 8
+    dx_stage = 2 * 128 * 128 + nb * 128        # dz, y, w
+    dx_fixed = 8 * 4 * TF32_STEP * math.ceil(c / TF32_STEP) + bars
+    dw_stage = (ct + 2 * nt) * 128             # x, dz, y
+    dw_fixed = 2 * nt * 128 + bars              # two dyᵀ buffers
+    dx_st, dw_st = _tf32_stages(dx_stage, dx_fixed), \
+        _tf32_stages(dw_stage, dw_fixed)
+    return dict(dx_stages=dx_st, dx_stage=dx_stage,
+                dx_bytes=1024 + dx_st * dx_stage + dx_fixed,
+                dw_stages=dw_st, dw_stage=dw_stage,
+                dw_bytes=1024 + dw_st * dw_stage + dw_fixed,
+                tile_bytes=ct * (nt + 8) * 4)
 
 
 _ENTRIES = {}
@@ -250,15 +330,18 @@ def launch_bwd(lib_name: str, fn_name: str, dz, y, x_in, w,
     dev = dz.device
     dx = torch.empty((m, cin), dtype=x_in.dtype, device=dev)
     dw = torch.empty((cin, c), dtype=torch.float32, device=dev)
-    if bwd_instance(m, cin, c, dz.dtype) == "hopper":
+    inst = bwd_instance(m, cin, c, dz.dtype)
+    if inst != "simple":
         if any(t.data_ptr() % 16 for t in (dz, y, x_in, w)):
             raise KernelError(f"{fn_name}: the TMA loads need dz, y, x and "
                               f"w on 16-byte boundaries")
-        clusters, chunk = hopper_dw_plan(m, cin, c)
+        tiles, plan = ((hopper_tiles, hopper_dw_plan) if inst == "hopper"
+                       else (hopper_tf32_tiles, hopper_tf32_dw_plan))
+        clusters, chunk = plan(m, cin, c)
         ws = torch.empty((clusters if clusters > 1 else 0, cin, c),
                          dtype=torch.float32, device=dev)
-        ints = (m, cin, c, *hopper_tiles(m, cin, c), clusters, chunk)
-        suffix = "hopper"
+        ints = (m, cin, c, *tiles(m, cin, c), clusters, chunk)
+        suffix = inst
     else:
         splits, chunk = dw_splits(m, cin, c)
         ws = torch.empty((splits, cin, c), dtype=torch.float32, device=dev)

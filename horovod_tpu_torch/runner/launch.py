@@ -584,13 +584,14 @@ def launch_static(np: int, host_spec: str, command: List[str],
             for w in workers:
                 w.terminate()
     finally:
-        persist_job_records(rdv)
+        tails = persist_job_records(rdv)
         rdv.stop()
         if nkv is not None:
             nkv.stop()
     bad = [(i, c) for i, c in enumerate(codes) if c != 0]
     if bad:
         print(f"{PROG}: workers failed: {bad}", file=sys.stderr)
+        print_doctor_hint(PROG, tails)
         # Report the originating failure, not the -SIGTERM of siblings we
         # killed in response.
         real = [c for _, c in bad if c > 0]
@@ -625,17 +626,31 @@ def _start_native_kv():
     return nkv
 
 
-def persist_job_records(rdv) -> None:
+def persist_job_records(rdv) -> list:
     """Write what the workers pushed to the rendezvous KV and what lives
     nowhere else once it stops, into HOROVOD_FLIGHT_DIR when set: the
     flight-recorder tails, the perfscope summaries, the trace spans and
-    the hvdwatch records (those under HOROVOD_WATCH_DIR when set)."""
+    the hvdwatch records (those under HOROVOD_WATCH_DIR when set).
+    Returns the flight tails' paths."""
     from horovod_tpu_torch.observability import flight, tracing, watch
     from horovod_tpu_torch.profiler import perfscope
-    flight.persist_kv_tails(rdv)
+    tails = flight.persist_kv_tails(rdv)
     perfscope.persist_kv_summaries(rdv)
     watch.persist_kv_records(rdv)
     tracing.persist_kv_spans(rdv)
+    return tails
+
+
+def print_doctor_hint(prog: str, tails=()) -> None:
+    """After a failed job, point the operator at the flight-recorder dumps
+    in HOROVOD_FLIGHT_DIR and the doctor that merges them (as the JAX
+    launcher and elastic driver do)."""
+    from horovod_tpu_torch.observability import flight
+    flight_dir = os.environ.get(flight.FLIGHT_DIR_ENV, "")
+    if flight_dir and (tails or os.path.isdir(flight_dir)):
+        print(f"{prog}: flight-recorder dumps are in {flight_dir}; merge "
+              f"them with `python -m horovod_tpu_torch.observability."
+              f"doctor --dir {flight_dir}`", file=sys.stderr)
 
 
 def check_build() -> int:

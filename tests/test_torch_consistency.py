@@ -234,7 +234,30 @@ def test_fingerprints_match_jax(interval):
         want.hexdigest().encode()
 
 
-def test_skipped_call_raises_the_same_divergence_as_jax():
+@pytest.fixture()
+def flight_env(request, tmp_path, monkeypatch):
+    """HOROVOD_FLIGHT_DIR set to a fresh directory or unset, and both
+    packages' flight recorders re-read from it (and again afterwards), so
+    the divergence message does not depend on what an earlier test left
+    behind. Yields the directory or None."""
+    from horovod_tpu.observability import flight as jfl
+    from horovod_tpu_torch.observability import flight as tfl
+    d = str(tmp_path / "flight") if request.param else None
+    if d:
+        monkeypatch.setenv("HOROVOD_FLIGHT_DIR", d)
+    else:
+        monkeypatch.delenv("HOROVOD_FLIGHT_DIR", raising=False)
+    for m in (jfl, tfl):
+        m.reset_for_tests()
+    yield d
+    monkeypatch.undo()
+    for m in (jfl, tfl):
+        m.reset_for_tests()
+
+
+@pytest.mark.parametrize("flight_env", [False, True], indirect=True,
+                         ids=["no_flight_dir", "flight_dir"])
+def test_skipped_call_raises_the_same_divergence_as_jax(flight_env):
     msgs = {}
     for name, mod in (("jax", jver), ("port", tver)):
         store = {}
@@ -251,8 +274,18 @@ def test_skipped_call_raises_the_same_divergence_as_jax():
     assert msgs["port"][0] == msgs["jax"][0]
     assert msgs["port"][1] == msgs["jax"][1].replace(
         "python -m horovod_tpu.analysis",
-        "python -m horovod_tpu_torch.analysis")
+        "python -m horovod_tpu_torch.analysis").replace(
+        "python -m horovod_tpu.observability.doctor",
+        "python -m horovod_tpu_torch.observability.doctor")
     assert "first divergent call #2" in msgs["port"][1]
+    if flight_env:
+        # the dump's path, then how to merge the dumps (fault C15)
+        assert msgs["port"][1].endswith(
+            f" (merge with `python -m horovod_tpu_torch.observability.doctor"
+            f" --dir {flight_env}`)")
+        assert f"; flight recorder dump: {flight_env}/" in msgs["port"][1]
+    else:
+        assert "flight recorder dump" not in msgs["port"][1]
 
 
 # ---------------------------------------------------------------- checker

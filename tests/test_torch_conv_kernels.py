@@ -265,9 +265,9 @@ RAGGED_HOPPER = [(6271, 256, 1024), (6271, 64, 200)]
 @pytest.mark.parametrize("m,cin,c", _resnet50_sites() + RAGGED_HOPPER)
 def test_resnet50_sites_take_the_hopper_instance_in_bf16(m, cin, c):
     """Kernels 2 and 3 run every ResNet-50 site (batch 32) on the Hopper
-    instance in bf16, and on the simple (tf32) one in f32."""
+    instance in bf16, and on its tf32 sibling in f32."""
     assert tcbb.bwd_instance(m, cin, c, torch.bfloat16) == "hopper"
-    assert tcbb.bwd_instance(m, cin, c, torch.float32) == "simple"
+    assert tcbb.bwd_instance(m, cin, c, torch.float32) == "hopper_tf32"
 
 
 @pytest.mark.parametrize("m,cin,c", [(1001, 24, 50), (250, 16, 64),

@@ -35,8 +35,8 @@ pytestmark = pytest.mark.cuda
 SHAPES = [(256, 32, 48), (250, 16, 64), (1001, 24, 50), (4096, 256, 512)]
 # Kernels 2 and 3 also at two ResNet-50 site shapes, on their Hopper
 # instances in bf16 (Cin 1024 runs the 256-wide tiles and a two-cluster
-# dW; Cin 64 the 64-wide ones and 16 clusters) and on the simple ones in
-# f32; (4096, 256, 512) is Hopper in bf16 too, the first three simple.
+# dW; Cin 64 the 64-wide ones and 16 clusters) and in f32 (tf32);
+# (4096, 256, 512) is Hopper in both types too, the first three simple.
 BWD_SHAPES = SHAPES + [(6272, 1024, 256), (100352, 64, 64)]
 
 
@@ -172,6 +172,35 @@ def test_f32_conv_kernels_match_plain(dev, m, cin, c):
                                   cb.conv1x1_bn_act_bwd_fused,
                                   cbb.conv1x1_bn_bwd_fused)]
     assert after == [n + 1 for n in before]
+
+
+@pytest.mark.parametrize("m,cin,c", [(6272, 1024, 256), (100352, 64, 64),
+                                     (25088, 512, 128), (6271, 64, 200)])
+def test_tf32_hopper_bwd_matches_plain_and_repeats(dev, m, cin, c):
+    """Kernels 2 and 3 in f32 on their Hopper instance (tf32 wgmma, TMA,
+    dW split over clusters) at ResNet-50 sites and a ragged M: within
+    2^-9 of the plain versions, and two launches give the same bits."""
+    assert cbb.bwd_instance(m, cin, c, torch.float32) == "hopper_tf32"
+    x, w, scale, bias, dz = _inputs(m, cin, c, dev, seed=6,
+                                    bf=torch.float32)
+    y, ssum, ssq = cb._fwd_plain(x, w)
+    mean = ssum / m
+    inv = torch.rsqrt(ssq / m - mean.square() + 1e-5)
+    db, dg = cb._bn_act_sums(dz, y, mean, inv, scale, bias, True)
+    runs = [cb.conv1x1_bn_act_bwd_fused(dz, y, x, w, scale, bias, mean, inv,
+                                        db, dg) for _ in range(2)]
+    g, a, b = cbb.fold_rows(scale, inv, db, dg, None, None, m)
+    ref2 = cbb._bwd_plain(dz, y, x, w, g, mean, inv, a, b, scale, bias)
+    db3, dg3 = cbb._bn_sums(dz, y, mean, inv)
+    runs += [cbb.conv1x1_bn_bwd_fused(dz, y, x, w, scale, mean, inv, db3,
+                                      dg3) for _ in range(2)]
+    g3, a3, b3 = cbb.fold_rows(scale, inv, db3, dg3, None, None, m)
+    ref3 = cbb._bwd_plain(dz, y, x, w, g3, mean, inv, a3, b3)
+    for (got, again), ref in (((runs[0], runs[1]), ref2),
+                              ((runs[2], runs[3]), ref3)):
+        _close(got[0], ref[0], 2.0 ** -9)
+        _close(got[1], ref[1], 2.0 ** -9)
+        assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
 
 
 def test_conv_kernels_refuse_mixed_dtypes(dev):

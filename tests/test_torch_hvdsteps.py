@@ -12,13 +12,13 @@ default configuration and under each regression twin:
   tests/torch_world_worker.py): clean under HVD2xx-4xx; with
   HOROVOD_SHARD_LINT_REPLICATED=1 HVD301 on every table >= 4 MB.
 
-Two differences are pinned, not baselined (ROADMAP section C): the JAX
-GSPMD twin of lm_sharded also fires HVD302 on the all-gather its
+One difference is pinned, not baselined (ROADMAP section C, C14): the
+JAX GSPMD twin of lm_sharded also fires HVD302 on the all-gather its
 partitioner inserts, which the port, with no partitioner, does not
-have; and the port's tied LM fires HVD504 under the numerics rules,
-because its backward accumulates with CUDA atomics (the embedding
-lookup's index_put and the target gather's scatter_add), where XLA's
-scatter does not.
+have. Under the numerics rules the port's programs equal the JAX ones
+(fault C13, closed: the embedding lookup's index_put sorts on CUDA and
+the target gather's scatter_add writes each address once, so neither is
+an HVD504 hazard; tests/test_torch_atomics.py).
 """
 
 import glob
@@ -38,10 +38,6 @@ from horovod_tpu_torch.analysis import shard as tshard
 
 from torch_world_worker import start_world
 import torch_hvdprog_worker as worker
-
-#: ROADMAP C13: the port's tied LM accumulates with CUDA atomics.
-ATOMICS = {"HVD504"}
-
 
 def rules(findings):
     return {f.rule_id for f in findings}
@@ -65,9 +61,9 @@ def test_lm_step(monkeypatch, twin):
     # ~20 MB of f32 gradients: buckets of <= 4 MiB, or one giant one
     assert sum(payloads) == (8192 * 256 + 6 * 2 * 256 * 1024) * 4
     assert (len(payloads) == 1) == twin
-    if not twin:  # the numerics rules: fault C13, pinned
+    if not twin:  # the numerics rules: as the JAX program's (C13)
         assert rules(jnum.lint_text(jhlo.lower_step_text("lm"))) == set()
-        assert rules(tnum.lint_programs([prog])) == ATOMICS
+        assert rules(tnum.lint_programs([prog])) == set()
 
 
 @pytest.mark.parametrize("twin", [False, True], ids=["default", "twin"])
@@ -127,7 +123,7 @@ def test_sharded_steps(sharded, kind, replicated):
     want = _jax_sharded_rules(kind, replicated)
     assert want == ({"HVD301"} | ({"HVD302"} if kind == "lm_sharded"
                                   else set()) if replicated else set())
-    assert port == (want - {"HVD302"}) | ATOMICS
+    assert port == want - {"HVD302"}
     if replicated:  # every table >= 4 MB, on every rank
         hits = [f for p in progs for f in tshard.lint_program(p)]
         assert len(hits) == 4 * 5

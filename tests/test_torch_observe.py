@@ -198,6 +198,9 @@ def test_init_starts_the_timeline_from_the_env(world, tmp_path):
 
 
 def test_init_warns_when_the_timeline_cannot_open(world, tmp_path, capfd):
+    # a logger made by an earlier test writes to the stderr of its time
+    from horovod_tpu_torch.common import hvd_logging
+    hvd_logging.reset_for_tests()
     blocker = tmp_path / "file"
     blocker.write_text("")
     world.setenv("HOROVOD_TIMELINE", str(blocker / "tl.json"))
